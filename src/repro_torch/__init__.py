@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of `repro`: the Qm.n smallNet on an NVIDIA H100.
+
+The JAX package `repro` stays the reference; nothing here imports it or
+JAX.  Layout mirrors it: `core/` (fixed-point words, backends, the smallNet
+graph, the device rule), `kernels/` (CUDA kernels in `csrc/` with their
+plain PyTorch versions), `serving/`, `obs/`, `data/`.
+"""

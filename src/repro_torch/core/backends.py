@@ -1,0 +1,240 @@
+"""Backend dispatch for smallNet — one network graph, swappable substrates.
+
+Port of `repro.core.backends`.  The graph lives once in `smallnet.apply`;
+a backend supplies the five layer primitives
+
+    conv2x2_same(x, w, b)   pre-activation 2x2 SAME conv
+    maxpool2x2(x)           2x2/2 max pool
+    dense(x, w, b)          pre-activation fully-connected layer
+    sigmoid(x)              the activation unit
+    quantize_params(params) float params -> backend-native parameters
+
+plus the hooks `ingest`, `flatten`, `fused_conv_act`, `fused_conv_act_pool`,
+`accumulate`, `mask_conv_weight`, `frame_trunk`, `prepare_params` and
+`params_native`.  Parameters are a dict of dicts of tensors with the
+reference's layouts: conv weights (2,2,1,1) HWIO, conv bias (1,), dense
+(49,10) and (10,).
+
+Registered backends:
+
+    fixed       the bit-faithful Qm.n two's-complement datapath (paper
+                §III-B) in PyTorch word ops — the plain versions of the
+                kernels, on whatever device the tensors live on
+    fixed_cuda  the same words through the hand-written CUDA kernels
+                (`kernels/fixed_conv`, `kernels/quant_matmul`): the fused
+                conv -> PLAN -> maxpool stage is one launch, then the dense
+                launch and the PLAN sigmoid launch.  The counterpart of the
+                reference's `fixed_pallas`.  On CPU tensors its wrappers run
+                the plain versions.
+
+The float (`ref`, `plan`, `pallas*`) and `int8` backends are not ported
+yet.  `frame_trunk` returns None on both backends until the whole-frame
+trunk kernel is ported, so `conv_trunk` on a single frame runs the
+composed stages (same words, more launches).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import fixed_point as fxp
+from repro_torch.core.device import as_device_tensor
+from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain,
+                                                fixed_maxpool2x2,
+                                                fixed_maxpool2x2_plain,
+                                                fixed_sigmoid)
+from repro_torch.kernels.quant_matmul.ops import fixed_dense, fixed_dense_plain
+
+
+def tree_map(fn, tree):
+    """Apply `fn` to every leaf of a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Backend base class + registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """Base class: the hooks' defaults; subclasses supply the primitives."""
+    name: str = "base"
+
+    # -- the five primitives ------------------------------------------------
+    def quantize_params(self, params):
+        """Float params -> backend-native params (identity here)."""
+        return params
+
+    def conv2x2_same(self, x, w, b):
+        raise NotImplementedError(f"{self.name}: conv2x2_same")
+
+    def maxpool2x2(self, x):
+        raise NotImplementedError(f"{self.name}: maxpool2x2")
+
+    def dense(self, x, w, b):
+        raise NotImplementedError(f"{self.name}: dense")
+
+    def sigmoid(self, x):
+        raise NotImplementedError(f"{self.name}: sigmoid")
+
+    # -- hooks --------------------------------------------------------------
+    def params_native(self, params) -> bool:
+        """True if `params` are already in this backend's native format."""
+        return True
+
+    def prepare_params(self, params, device: torch.device | str | None = None):
+        """Idempotent: params as tensors on `device` (tensors stay where they
+        are when it is None), quantized unless already native."""
+        params = tree_map(lambda leaf: as_device_tensor(leaf, device), params)
+        return params if self.params_native(params) else self.quantize_params(params)
+
+    def ingest(self, images):
+        """(B,H,W,1) float images -> backend activation tensor."""
+        return images
+
+    def flatten(self, x):
+        return x.reshape(x.shape[0], -1)
+
+    def fused_conv_act(self, x, w, b):
+        """conv + activation; backends with a fused epilogue override this."""
+        return self.sigmoid(self.conv2x2_same(x, w, b))
+
+    def accumulate(self, a, b):
+        """Add two pre-activation conv partial sums in this backend's word
+        domain (the frame sweep's masked-tap decomposition)."""
+        return a + b
+
+    def mask_conv_weight(self, w, mask):
+        """Zero out conv taps: w (2,2,1,1), mask (2,2) of 0/1."""
+        return w * torch.as_tensor(mask, dtype=w.dtype, device=w.device).reshape(2, 2, 1, 1)
+
+    def fused_conv_act_pool(self, x, w, b):
+        """conv + activation + 2x2 maxpool — the full paper pipeline stage.
+        The default composes two hooks; `fixed_cuda` fuses it into one
+        launch."""
+        return self.maxpool2x2(self.fused_conv_act(x, w, b))
+
+    def frame_trunk(self, frames, p):
+        """Whole-frame trunk fast path, or None to run the composed stages.
+        None on every backend until the frame-trunk kernel is ported."""
+        return None
+
+
+_REGISTRY: dict[str, Backend] = {}
+
+
+def register_backend(name: str, backend: Backend | None = None):
+    """Register a backend instance under `name`, directly or as a class
+    decorator (as in the reference)."""
+    if backend is not None:
+        _REGISTRY[name] = backend
+        return backend
+
+    def deco(cls):
+        _REGISTRY[name] = cls() if isinstance(cls, type) else cls
+        return cls
+    return deco
+
+
+def get_backend(backend: str | Backend) -> Backend:
+    if isinstance(backend, Backend):
+        return backend
+    try:
+        return _REGISTRY[backend]
+    except KeyError:
+        raise KeyError(
+            f"unknown backend {backend!r}; registered: {list_backends()}") from None
+
+
+def list_backends() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point backends: the paper's Verilog datapath
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FixedBackend(Backend):
+    """Bit-faithful Qm.n two's-complement path (paper §III-B, Fig. 4) in
+    PyTorch word ops.  Activations are (B, H, W) int32 words; images are
+    quantized at the input port; class scores are int32 words."""
+    name: str = "fixed"
+    cfg: fxp.FixedPointConfig = fxp.Q16_16
+
+    def quantize_params(self, params):
+        """The paper's §III-B weight extraction: float weights -> words."""
+        return tree_map(lambda p: fxp.to_fixed(p, self.cfg, device=p.device), params)
+
+    def params_native(self, params) -> bool:
+        leaves = tree_leaves(params)
+        return bool(leaves) and all(
+            not leaf.dtype.is_floating_point and not leaf.dtype.is_complex
+            and leaf.dtype != torch.bool for leaf in leaves)
+
+    def ingest(self, images):
+        # the paper streams 8-bit pixels via DMA; quantize at the port
+        return fxp.to_fixed(images[..., 0], self.cfg).contiguous()   # (B,H,W)
+
+    def conv2x2_same(self, x, w, b):
+        # w (2,2,1,1) -> the 4 MAC taps in row-major (dh, dw) order
+        return fixed_conv2d_plain(x, w.reshape(4), b, cfg=self.cfg)
+
+    def maxpool2x2(self, x):
+        return fixed_maxpool2x2_plain(x)
+
+    def dense(self, x, w, b):
+        return fixed_dense_plain(x, w, b, cfg=self.cfg)
+
+    def sigmoid(self, x):
+        return fxp.fixed_sigmoid_plan(x, self.cfg)
+
+    def accumulate(self, a, b):
+        # wraparound fixed add is associative mod 2**total_bits
+        return fxp.fixed_add(a, b, self.cfg)
+
+
+register_backend("fixed", FixedBackend())
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedCudaBackend(FixedBackend):
+    """The Qm.n datapath through the CUDA kernels: per served step, two fused
+    conv -> PLAN -> maxpool launches, one dense launch and one PLAN sigmoid
+    launch.  Same words as `fixed` (it reuses its `quantize_params` and
+    `ingest`)."""
+    name: str = "fixed_cuda"
+
+    def conv2x2_same(self, x, w, b):
+        return fixed_conv2d(x, w.reshape(4), b, cfg=self.cfg)
+
+    def fused_conv_act(self, x, w, b):
+        return fixed_conv2d(x, w.reshape(4), b, cfg=self.cfg, activation="plan")
+
+    def fused_conv_act_pool(self, x, w, b):
+        # windowing -> MAC -> bias -> PLAN -> maxpool, one launch
+        return fixed_conv2d(x, w.reshape(4), b, cfg=self.cfg, activation="plan",
+                            pool=True)
+
+    def maxpool2x2(self, x):
+        return fixed_maxpool2x2(x)
+
+    def dense(self, x, w, b):
+        return fixed_dense(x, w, b, cfg=self.cfg)
+
+    def sigmoid(self, x):
+        return fixed_sigmoid(x, cfg=self.cfg)
+
+
+register_backend("fixed_cuda", FixedCudaBackend())

@@ -1,0 +1,118 @@
+"""smallNet — the paper's model over swappable inference backends (PyTorch).
+
+Port of `repro.core.smallnet`.  Architecture (paper §III-A, Fig. 2):
+    conv 1 filter 2x2, stride 1, SAME, sigmoid
+    maxpool 2x2
+    conv 1 filter 2x2, SAME, sigmoid
+    maxpool 2x2
+    flatten (7*7 = 49)
+    dense 10, sigmoid
+    Max Finder (argmax)
+Parameter count: (2*2*1*1 + 1) * 2 + 49*10 + 10 = 510.
+
+The graph lives once in `apply(params, images, backend=...)`; a backend
+(core/backends.py) supplies the layer primitives.  Registered here:
+"fixed" (Qm.n words in PyTorch ops) and "fixed_cuda" (the same words
+through the CUDA kernels).
+
+Device rule (core/device.py): images that are a tensor stay on its device;
+anything else goes to `device`, which defaults to "cuda" and raises where
+there is none.  Params are moved next to the images.  There is no mesh, so
+the reference's `_constrain_batch` has no counterpart.  Training
+(`init_params`, `loss_fn`, `deploy`) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import backends as B
+from repro_torch.core import fixed_point as fxp
+from repro_torch.core.device import as_device_tensor
+
+
+def param_count(params: dict) -> int:
+    return sum(int(torch.as_tensor(p).numel()) for p in B.tree_leaves(params))
+
+
+def _images(images, device) -> torch.Tensor:
+    return as_device_tensor(images, device, dtype=torch.float32)
+
+
+def _conv_stages(be: B.Backend, p: dict, images: torch.Tensor) -> torch.Tensor:
+    """Ingest + both conv->act->pool stages: images -> pooled feature maps
+    ((B,7,7) words for 28x28 inputs; any extent divides through as H/4 x W/4)."""
+    x = be.ingest(images)
+    x = be.fused_conv_act_pool(x, p["conv1"]["w"], p["conv1"]["b"])
+    return be.fused_conv_act_pool(x, p["conv2"]["w"], p["conv2"]["b"])
+
+
+def _dense_preact(be: B.Backend, p: dict, feats: torch.Tensor) -> torch.Tensor:
+    """Pooled feature maps -> PRE-activation class scores (B, 10)."""
+    return be.dense(be.flatten(feats), p["dense"]["w"], p["dense"]["b"])
+
+
+def conv_trunk(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """The conv half of the pipeline: images (B,H,W,1) -> pooled feature maps
+    (B,H/4,W/4).  `apply(params, x) == dense_head(params, conv_trunk(params,
+    x))`.  A single frame takes the backend's `frame_trunk` fast path when it
+    has one (none yet), else the composed stages."""
+    be = B.get_backend(backend)
+    x = _images(images, device)
+    p = be.prepare_params(params, x.device)
+    if x.ndim == 4 and x.shape[0] == 1:
+        quad = be.frame_trunk(x, p)
+        if quad is not None:
+            return quad[0]                     # interior == the plain trunk
+    return _conv_stages(be, p, x)
+
+
+def dense_head(params: dict, feats, *, backend: str | B.Backend = "fixed_cuda",
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """The 49->10 dense classifier + output sigmoid over pooled feature maps
+    ((B,7,7) words, or already-flat (B,49))."""
+    be = B.get_backend(backend)
+    feats = as_device_tensor(feats, device)
+    p = be.prepare_params(params, feats.device)
+    return be.sigmoid(_dense_preact(be, p, feats))
+
+
+def apply(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
+          device: torch.device | str | None = None) -> torch.Tensor:
+    """Single entry point: images (B,28,28,1) -> class scores (B,10).
+
+    `params` may be float (quantized on the way in, idempotently) or
+    already backend-native (the int32 words of `quantize_params_fixed`).
+    Scores are Qm.n int32 words; `predict` is the Max Finder over them."""
+    be = B.get_backend(backend)
+    x = _images(images, device)
+    p = be.prepare_params(params, x.device)
+    return be.sigmoid(_dense_preact(be, p, _conv_stages(be, p, x)))
+
+
+def forward_fixed(qparams: dict, images, cfg: fxp.FixedPointConfig = fxp.Q16_16, *,
+                  device: torch.device | str | None = None) -> torch.Tensor:
+    """Bit-faithful fixed-point inference on the plain `fixed` backend:
+    images float in [0,1] -> class-score words (B,10) int32."""
+    be = B.get_backend("fixed") if cfg == fxp.Q16_16 else B.FixedBackend(cfg=cfg)
+    return apply(qparams, images, backend=be, device=device)
+
+
+def quantize_params_fixed(params: dict, cfg: fxp.FixedPointConfig = fxp.Q16_16, *,
+                          device: torch.device | str | None = None) -> dict:
+    """The paper's §III-B weight extraction: float weights -> int32 words."""
+    be = B.FixedBackend(cfg=cfg)
+    return be.quantize_params(
+        B.tree_map(lambda leaf: as_device_tensor(leaf, device), params))
+
+
+def predict(scores) -> torch.Tensor:
+    """The paper's Max Finder: the index of the largest score, the FIRST one
+    on a tie (as `jnp.argmax`).  PLAN saturates to `one` for |x| >= 5, so
+    tied top scores are common; the first index is picked explicitly rather
+    than left to a device's argmax."""
+    scores = torch.as_tensor(scores)
+    n = scores.shape[-1]
+    top = scores.max(dim=-1, keepdim=True).values
+    idx = torch.arange(n, device=scores.device).expand_as(scores)
+    return torch.where(scores == top, idx, n).min(dim=-1).values

@@ -1,0 +1,61 @@
+"""What every kernel wrapper shares: input checks, the CPU/CUDA route, the
+launch counts.
+
+A wrapper checks its tensors (device, dtype, shape, contiguity), then
+sends CPU tensors to its plain PyTorch version and launches its CUDA kernel
+for CUDA tensors; any other device raises.  There is no fallback: a CUDA
+tensor either goes through the kernel or the call raises.
+
+`LAUNCHES[name]` is incremented by a wrapper where it launches its kernel
+and nowhere else, so a run can show which kernels its path went through
+(`reset_launches()` before, `launches()` after).
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+LAUNCHES: collections.Counter[str] = collections.Counter()
+
+
+def launches() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def require_words(what: str, t: torch.Tensor, *, ndim: int | None = None,
+                  numel: int | None = None) -> None:
+    """Raise unless `t` is a contiguous int32 tensor of the given rank/size."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{what}: expected {numel} words, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True to launch the kernel (CUDA), False for the plain version (CPU)."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def stream_of(t: torch.Tensor) -> tuple[int, int]:
+    """(device index, current stream handle) for a launch next to `t`."""
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream
