@@ -21,16 +21,22 @@ Registered backends:
                 §III-B) in PyTorch word ops — the plain versions of the
                 kernels, on whatever device the tensors live on
     fixed_cuda  the same words through the hand-written CUDA kernels
-                (`kernels/fixed_conv`, `kernels/quant_matmul`): the fused
-                conv -> PLAN -> maxpool stage is one launch, then the dense
-                launch and the PLAN sigmoid launch.  The counterpart of the
-                reference's `fixed_pallas`.  On CPU tensors its wrappers run
-                the plain versions.
+                (`kernels/fixed_conv`, `kernels/quant_matmul`,
+                `kernels/frame_trunk`): the fused conv -> PLAN -> maxpool
+                stage is one launch, then the dense launch and the PLAN
+                sigmoid launch; a whole frame's trunk is one launch.  The
+                counterpart of the reference's `fixed_pallas`.  On CPU
+                tensors its wrappers run the plain versions.
 
 The float (`ref`, `plan`, `pallas*`) and `int8` backends are not ported
-yet.  `frame_trunk` returns None on both backends until the whole-frame
-trunk kernel is ported, so `conv_trunk` on a single frame runs the
-composed stages (same words, more launches).
+yet.  `frame_trunk` is the whole-frame trunk of one frame in one step:
+`fixed` runs the untiled plain version (`frame_trunk_quad_plain`) and
+`fixed_cuda` launches the `csrc/frame_trunk.cu` kernel (its plain version
+on CPU tensors).  Both return None, as the reference's `FixedBackend`
+does, where the trunk cannot tile: a batch other than 1, an extent that
+is not a multiple of 4 or is below 4, or a saturating config.  That is
+routing to the composed stages, not a fallback: on valid geometry a build
+or launch failure raises.
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain
                                                 fixed_maxpool2x2,
                                                 fixed_maxpool2x2_plain,
                                                 fixed_sigmoid)
+from repro_torch.kernels.frame_trunk.ops import (frame_trunk_quad,
+                                                 frame_trunk_quad_plain)
 from repro_torch.kernels.quant_matmul.ops import fixed_dense, fixed_dense_plain
 
 
@@ -126,8 +134,9 @@ class Backend:
         return self.maxpool2x2(self.fused_conv_act(x, w, b))
 
     def frame_trunk(self, frames, p):
-        """Whole-frame trunk fast path, or None to run the composed stages.
-        None on every backend until the frame-trunk kernel is ported."""
+        """Whole-frame trunk fast path over a (1,H,W,1) frame batch: the
+        level-2 role-map quad (I, B, R, C), each (1, H/4, W/4), or None to
+        run the composed stages."""
         return None
 
 
@@ -204,6 +213,20 @@ class FixedBackend(Backend):
         # wraparound fixed add is associative mod 2**total_bits
         return fxp.fixed_add(a, b, self.cfg)
 
+    def _trunk_words(self, x, p):
+        return frame_trunk_quad_plain(x, p["conv1"]["w"], p["conv1"]["b"],
+                                      p["conv2"]["w"], p["conv2"]["b"], cfg=self.cfg)
+
+    def frame_trunk(self, frames, p):
+        # None routes to the composed stages where the trunk cannot tile;
+        # the reference's interpret-mode `optimization_barrier` has no
+        # counterpart (its hazard is pinned by a test of the corner map)
+        B_, H, W = frames.shape[0], frames.shape[1], frames.shape[2]
+        if B_ != 1 or H % 4 or W % 4 or H < 4 or W < 4 or self.cfg.saturate:
+            return None
+        quad = self._trunk_words(self.ingest(frames)[0], p)   # (4, H/4, W/4)
+        return tuple(quad[k][None] for k in range(4))
+
 
 register_backend("fixed", FixedBackend())
 
@@ -212,8 +235,9 @@ register_backend("fixed", FixedBackend())
 class FixedCudaBackend(FixedBackend):
     """The Qm.n datapath through the CUDA kernels: per served step, two fused
     conv -> PLAN -> maxpool launches, one dense launch and one PLAN sigmoid
-    launch.  Same words as `fixed` (it reuses its `quantize_params` and
-    `ingest`)."""
+    launch; per swept frame, one `frame_trunk` launch.  Same words as
+    `fixed` (it reuses its `quantize_params`, `ingest` and the
+    `frame_trunk` routing)."""
     name: str = "fixed_cuda"
 
     def conv2x2_same(self, x, w, b):
@@ -235,6 +259,11 @@ class FixedCudaBackend(FixedBackend):
 
     def sigmoid(self, x):
         return fixed_sigmoid(x, cfg=self.cfg)
+
+    def _trunk_words(self, x, p):
+        # one launch of the whole trunk (csrc/frame_trunk.cu)
+        return frame_trunk_quad(x, p["conv1"]["w"], p["conv1"]["b"],
+                                p["conv2"]["w"], p["conv2"]["b"], cfg=self.cfg)
 
 
 register_backend("fixed_cuda", FixedCudaBackend())

@@ -1,10 +1,11 @@
 """Carry smallNet parameters from the JAX package into the port.
 
 `params_from_jax(tree, device)` takes the reference's params as arrays
-(numpy, or anything `np.asarray` accepts) — float, or the int32 words of
-its `quantize_params_fixed` — and returns the port's dict of tensors.  The
-layouts stay: conv weights (2,2,1,1) HWIO and biases (1,), dense (49,10)
-and (10,), so both packages compute the same thing from the same numbers.
+(numpy, anything `np.asarray` accepts, or torch tensors on any device) —
+float, or the int32 words of its `quantize_params_fixed` — and returns the
+port's dict of tensors.  The layouts stay: conv weights (2,2,1,1) HWIO and
+biases (1,), dense (49,10) and (10,), so both packages compute the same
+thing from the same numbers.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ def params_from_jax(tree: dict, device: torch.device | str | None = None) -> dic
     for layer, leaves in SHAPES.items():
         out[layer] = {}
         for leaf, shape in leaves.items():
-            a = np.asarray(tree[layer][leaf])
+            a = tree[layer][leaf]
+            a = np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a)
             if a.shape != shape:
                 raise ValueError(f"{layer}.{leaf}: expected shape {shape}, got {a.shape}")
             if a.dtype.kind == "f":

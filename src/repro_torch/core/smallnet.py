@@ -55,8 +55,10 @@ def conv_trunk(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
                device: torch.device | str | None = None) -> torch.Tensor:
     """The conv half of the pipeline: images (B,H,W,1) -> pooled feature maps
     (B,H/4,W/4).  `apply(params, x) == dense_head(params, conv_trunk(params,
-    x))`.  A single frame takes the backend's `frame_trunk` fast path when it
-    has one (none yet), else the composed stages."""
+    x))`.  A single frame of the pooled-lattice geometry takes the backend's
+    `frame_trunk` fast path (one `frame_trunk` launch on `fixed_cuda`); its
+    interior map is word-identical to the composed stages, which every
+    other input runs."""
     be = B.get_backend(backend)
     x = _images(images, device)
     p = be.prepare_params(params, x.device)

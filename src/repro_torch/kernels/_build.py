@@ -31,7 +31,7 @@ from repro_torch.core import fixed_point as fxp
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fixed_conv", "fixed_dense")          # csrc/<name>.cu
+SOURCES = ("fixed_conv", "fixed_dense", "frame_trunk")   # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,6 +65,10 @@ SIGNATURES = {
     },
     "fixed_dense": {
         "fixed_dense_launch": [_I, _P, _P, _P, _P, _I, _I, _I, FixedCfg, _P],
+    },
+    "frame_trunk": {
+        "frame_trunk_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               FixedCfg, _P],
     },
 }
 

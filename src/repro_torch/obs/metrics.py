@@ -1,9 +1,8 @@
 """Low-overhead metrics: counters, gauges, bounded histograms, one registry.
 
-A copy of the parts of `repro.obs.metrics` that the port's engine uses
-(the port imports nothing from `repro`); keep the two in step.  The
-Prometheus export and the pipeline summaries come with the code that
-needs them.
+A copy of the parts of `repro.obs.metrics` that the port's engine and
+streaming pipeline use (the port imports nothing from `repro`); keep the
+two in step.  The Prometheus export comes with the code that needs it.
 
 The serving stack used to keep ad-hoc python lists for every latency
 distribution (`StreamingPipeline._stage_s`, `VisionEngine._latencies`,
@@ -158,6 +157,21 @@ class Histogram:
     def samples(self) -> list[float]:
         """The bounded reservoir (most recent observations), as a list."""
         return list(self._samples)
+
+    def percentile(self, q: float) -> float:
+        return percentile(self._samples, q)
+
+    def summary_ms(self) -> dict:
+        """The pipeline's per-stage distribution block: n / mean / p50 /
+        p99 / max in milliseconds.  n and mean/max are EXACT over the whole
+        stream (O(1) accumulators); percentiles are over the reservoir."""
+        if self.count == 0:
+            return {"n": 0}
+        return {"n": self.count,
+                "mean_ms": self.sum / self.count * 1e3,
+                "p50_ms": self.percentile(50) * 1e3,
+                "p99_ms": self.percentile(99) * 1e3,
+                "max_ms": self.max * 1e3}
 
 class Registry:
     """Get-or-create instrument store keyed by (name, sorted labels).

@@ -1,0 +1,250 @@
+"""The port's frame sweep against the JAX reference, word for word.
+
+On the 112x112 seed-7 frame, `repro_torch.streaming.fcn_sweep` (both trunk
+routes, on the `fixed` and `fixed_cuda` backends with CPU tensors, so the
+plain versions run) gives the same role-map words and window-score words
+as the reference's composed sweep (`megakernel=False`, as the JAX tests
+run it on the CPU), the port's host `Tiler`, the frozen golden vectors
+(through the committed seeded-params fixture) and, for the trunk, the
+reference's `conv_trunk`.  The edge contract raises as the reference's
+does.  Tolerance: exact int32 words.
+"""
+import json
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import backends as JB  # noqa: E402
+from repro.core import fixed_point as jfxp  # noqa: E402
+from repro.core import smallnet as jsn  # noqa: E402
+from repro.streaming import fcn_sweep as jfs  # noqa: E402
+from repro.streaming.sources import SyntheticVideoSource as JSource  # noqa: E402
+from repro_torch.core import backends as TB  # noqa: E402
+from repro_torch.core import fixed_point as tfxp  # noqa: E402
+from repro_torch.core import smallnet as tsn  # noqa: E402
+from repro_torch.core.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import launches, reset_launches  # noqa: E402
+from repro_torch.streaming import fcn_sweep as tfs  # noqa: E402
+from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler  # noqa: E402
+
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+FORMATS = ("q16_16", "q8_8")
+ROUTES = (None, False)            # the frame_trunk route and the composed cascade
+
+
+def numpy_params(seed=0):
+    """Float params from numpy with every leaf nonzero."""
+    rng = np.random.default_rng(seed)
+    p = {"conv1": {"w": rng.uniform(-1.5, 1.5, (2, 2, 1, 1)), "b": rng.normal(0, 0.5, (1,))},
+         "conv2": {"w": rng.uniform(-1.5, 1.5, (2, 2, 1, 1)), "b": rng.normal(0, 0.5, (1,))},
+         "dense": {"w": rng.uniform(-0.6, 0.6, (49, 10)),
+                   "b": rng.normal(0, 0.5, (10,))}}
+    return {k: {n: a.astype(np.float32) for n, a in v.items()} for k, v in p.items()}
+
+
+def fixture_params():
+    g = json.loads((GOLDEN / "seeded_params.json").read_text())["params"]
+    return {layer: {leaf: np.asarray(v["values"], np.float32).reshape(v["shape"])
+                    for leaf, v in leaves.items()} for layer, leaves in g.items()}
+
+
+@pytest.fixture(scope="module")
+def frame112():
+    return SyntheticVideoSource(n_frames=1, seed=7).frames()[0]
+
+
+def _backends(fmt):
+    cfg = tfxp.STANDARD_CONFIGS[fmt]
+    return TB.FixedBackend(cfg=cfg), TB.FixedCudaBackend(cfg=cfg)
+
+
+@pytest.fixture(scope="module")
+def jax_reference():
+    """The reference's composed sweep on the numpy params, per format:
+    (role maps, stride-8 window scores)."""
+    params = numpy_params()
+    pixels = JSource(n_frames=1, seed=7).frames()[0].pixels
+    out = {}
+    for fmt in FORMATS:
+        be = JB.FixedBackend(name=f"fixed_{fmt}", cfg=jfxp.STANDARD_CONFIGS[fmt])
+        maps = jfs.sweep_feature_maps(params, pixels, backend=be, megakernel=False)
+        sw = jfs.FcnSweep(stride=8, megakernel=False)
+        fb, _ = sw.extract(pixels)
+        out[fmt] = (maps, np.asarray(sw.score(params, fb, backend=be)))
+    return out
+
+
+@pytest.mark.parametrize("megakernel", ROUTES)
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_maps_and_scores_match_jax_sweep(jax_reference, frame112, fmt, megakernel):
+    want_maps, want_scores = jax_reference[fmt]
+    params = params_from_jax(numpy_params(), "cpu")
+    for be in _backends(fmt):
+        maps = tfs.sweep_feature_maps(params, frame112.pixels, backend=be,
+                                      megakernel=megakernel, device="cpu")
+        assert sorted(maps) == sorted(want_maps)
+        for name, words in maps.items():
+            assert words.dtype == np.int32 and words.shape == (28, 28)
+            np.testing.assert_array_equal(words, want_maps[name], err_msg=name)
+        sw = FcnSweep(stride=8, megakernel=megakernel, cfg=be.cfg)
+        fb, pos = sw.extract(frame112)
+        scores = sw.score(params, fb, backend=be, device="cpu")
+        assert scores.dtype == np.int32 and scores.shape == (144, 10) == want_scores.shape
+        np.testing.assert_array_equal(scores, want_scores)
+
+
+def test_fixture_is_the_reference_seeded_params():
+    with jax.threefry_partitionable(False):
+        live = jsn.seeded_params()
+    fixed = fixture_params()
+    assert sorted(fixed) == sorted(live)
+    for layer in live:
+        assert sorted(fixed[layer]) == sorted(live[layer])
+        for leaf, a in live[layer].items():
+            a = np.asarray(a)
+            assert fixed[layer][leaf].dtype == a.dtype == np.float32
+            assert fixed[layer][leaf].tobytes() == a.tobytes(), (layer, leaf)
+
+
+@pytest.mark.parametrize("megakernel", ROUTES)
+def test_plain_sweep_matches_sweep_golden(frame112, megakernel):
+    g = json.loads((GOLDEN / "sweep_golden.json").read_text())
+    params = fixture_params()
+    for backend in ("fixed", "fixed_cuda"):
+        maps = tfs.sweep_feature_maps(params, frame112.pixels, backend=backend,
+                                      megakernel=megakernel, device="cpu")
+        for name, words in maps.items():
+            np.testing.assert_array_equal(words, np.asarray(g["maps"][name]), err_msg=name)
+        sw = FcnSweep(stride=g["stride"], megakernel=megakernel)
+        fb, pos = sw.extract(frame112)
+        assert [list(p) for p in pos] == g["positions"]
+        np.testing.assert_array_equal(sw.score(params, fb, backend=backend, device="cpu"),
+                                      np.asarray(g["scores"]))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_frame_trunk_route_matches_frame_trunk_golden(frame112, fmt):
+    g = json.loads((GOLDEN / "frame_trunk_golden.json").read_text())["maps"][fmt]
+    for be in _backends(fmt):
+        maps = tfs.sweep_feature_maps(fixture_params(), frame112.pixels, backend=be,
+                                      megakernel=True, device="cpu")
+        for name, words in maps.items():
+            np.testing.assert_array_equal(words, np.asarray(g[name]), err_msg=name)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_sweep_scores_equal_tiler_per_window(frame112, fmt):
+    """The exactness contract: each window's sweep words are the host
+    tiler's patch words, interior and border windows alike."""
+    params = params_from_jax(numpy_params(seed=1), "cpu")
+    fixed, cuda = _backends(fmt)
+    rng = np.random.default_rng(5)
+    small = rng.random((36, 44, 1)).astype(np.float32)
+    for frame in (frame112, small):
+        for stride in (4, 8, 12):
+            tiler = Tiler(stride=stride, cfg=fixed.cfg)
+            tiles, pos = tiler.extract(frame)
+            want = tiler.score(params, tiles, backend=fixed, device="cpu")
+            sw = FcnSweep(stride=stride, cfg=fixed.cfg)
+            fb, pos_s = sw.extract(frame)
+            assert pos_s == pos
+            np.testing.assert_array_equal(sw.score(params, fb, backend=cuda, device="cpu"),
+                                          want)
+
+
+@pytest.mark.parametrize("shape", [(112, 112), (104, 132)])
+def test_corner_map_last_columns_pinned(shape):
+    """The reference needed an `optimization_barrier` because interpret
+    mode corrupted the corner map's last W/4 % 8 columns; here those
+    columns of the frame_trunk route must equal the composed cascade's and
+    the reference's words."""
+    H, W = shape
+    k = (W // 4) % 8
+    assert k
+    rng = np.random.default_rng(H + W)
+    frame = rng.random((H, W, 1)).astype(np.float32)
+    params = numpy_params(seed=3)
+    tp = params_from_jax(params, "cpu")
+    composed = tfs.sweep_feature_maps(tp, frame, backend="fixed", megakernel=False,
+                                      device="cpu")
+    want = jfs.sweep_feature_maps(params, frame, backend="fixed", megakernel=False)
+    np.testing.assert_array_equal(composed["corner"], want["corner"])
+    for backend in ("fixed", "fixed_cuda"):
+        mega = tfs.sweep_feature_maps(tp, frame, backend=backend, megakernel=True,
+                                      device="cpu")
+        np.testing.assert_array_equal(mega["corner"][:, -k:], want["corner"][:, -k:])
+        for name in tfs.MAPS:
+            np.testing.assert_array_equal(mega[name], composed[name], err_msg=name)
+
+
+def test_edge_contract_fails_loudly(frame112):
+    params = numpy_params()
+    for kw in ({"stride": 6}, {"patch": 30}):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            FcnSweep(**kw)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            jfs.FcnSweep(**kw)
+    for shape in ((30, 32), (32, 30), (20, 40)):
+        with pytest.raises(ValueError) as got:
+            FcnSweep().positions(shape)
+        with pytest.raises(ValueError) as want:
+            jfs.FcnSweep().positions(shape)
+        assert str(got.value) == str(want.value)
+    sat = TB.FixedBackend(cfg=tfxp.STANDARD_CONFIGS["q16_16_sat"])
+    fb, _ = FcnSweep().extract(frame112)
+    with pytest.raises(NotImplementedError, match="wraparound"):
+        FcnSweep().score(params, fb, backend=sat, device="cpu")
+    with pytest.raises(NotImplementedError, match="wraparound"):
+        tfs.sweep_feature_maps(params, frame112.pixels, backend=sat, device="cpu")
+    with pytest.raises(ValueError, match="one frame per call"):
+        FcnSweep().score(params, np.concatenate([fb, fb]), backend="fixed", device="cpu")
+    # input the trunk cannot tile has no one-launch route, as in the reference
+    with pytest.raises(NotImplementedError, match="no frame_trunk"):
+        tfs.sweep_feature_maps(params, np.zeros((30, 30), np.float32), backend="fixed",
+                               megakernel=True, device="cpu")
+    be = TB.get_backend("fixed")
+    two = torch.zeros((2, 28, 28, 1))
+    with pytest.raises(NotImplementedError, match="no frame_trunk"):
+        tfs._trunk_quad(be, be.prepare_params(params, "cpu"), two, megakernel=True)
+    with pytest.raises(NotImplementedError, match="no frame_trunk"):
+        jfs._trunk_quad(JB.get_backend("fixed"), JB.get_backend("fixed").prepare_params(
+            params), jnp.zeros((2, 28, 28, 1)), megakernel=True)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_conv_trunk_fast_path_equals_composed_and_reference(frame112, fmt):
+    params = numpy_params(seed=2)
+    tp = params_from_jax(params, "cpu")
+    frame = torch.from_numpy(frame112.pixels[None])
+    jbe = JB.FixedBackend(name=f"fixed_{fmt}", cfg=jfxp.STANDARD_CONFIGS[fmt])
+    # two frames take the reference's composed stages, row by row
+    want = np.asarray(jax.jit(lambda p, x: jsn.conv_trunk(p, x, backend=jbe))(
+        params, jnp.asarray(np.concatenate([frame112.pixels[None]] * 2))))[0]
+    for be in _backends(fmt):
+        p = be.prepare_params(tp, "cpu")
+        quad = be.frame_trunk(frame, p)
+        assert quad is not None and len(quad) == 4
+        fast = tsn.conv_trunk(tp, frame, backend=be)
+        composed = tsn._conv_stages(be, p, frame)
+        assert torch.equal(fast, composed) and torch.equal(fast, quad[0])
+        np.testing.assert_array_equal(fast[0].numpy(), want)
+
+
+def test_frame_trunk_hook_routes_only_tileable_single_frames():
+    params = params_from_jax(numpy_params(), "cpu")
+    for be in (TB.get_backend("fixed"), TB.get_backend("fixed_cuda")):
+        p = be.prepare_params(params, "cpu")
+        for shape in ((2, 28, 28, 1), (1, 30, 28, 1), (1, 28, 26, 1), (1, 0, 28, 1)):
+            assert be.frame_trunk(torch.zeros(shape), p) is None
+        sat = TB.FixedCudaBackend(cfg=tfxp.STANDARD_CONFIGS["q8_8_sat"])
+        assert sat.frame_trunk(torch.zeros((1, 28, 28, 1)), sat.prepare_params(params, "cpu")) \
+            is None
+        reset_launches()
+        assert be.frame_trunk(torch.zeros((1, 28, 28, 1)), p)[3].shape == (1, 7, 7)
+        assert launches() == {}          # CPU tensors run the plain version

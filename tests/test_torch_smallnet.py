@@ -82,9 +82,9 @@ def test_trunk_head_and_predict_match_jax(data, cfg_name):
     want_feats = np.asarray(_jit(jsn.conv_trunk, j_fixed)(params, jnp.asarray(images)))
     want_scores = np.asarray(_jit(jsn.dense_head, j_fixed)(params, jnp.asarray(want_feats)))
     for be in (t_fixed, t_cuda):
-        # B=1 passes the frame_trunk hook (None in the port) and falls back
-        # to the composed stages; the reference's B=1 trunk equals its
-        # batched trunk row by row, so the batched words are the reference
+        # B=1 takes the frame_trunk fast path (its interior map) and B=6 the
+        # composed stages; the reference's B=1 trunk equals its batched
+        # trunk row by row, so the batched words are the reference for both
         for n in (1, 6):
             feats = tsn.conv_trunk(tp, torch.from_numpy(images[:n]), backend=be)
             _eq(feats, want_feats[:n])
@@ -128,6 +128,23 @@ def test_tied_top_scores_pick_the_first_index():
                                   np.asarray(jnp.argmax(jnp.asarray(want), axis=-1)))
     ties = torch.tensor([[3, 9, 9, 1], [7, 7, 7, 7], [-5, -2, -9, -2]], dtype=torch.int32)
     assert tsn.predict(ties).tolist() == [1, 0, 1]
+
+
+def test_params_from_jax_accepts_torch_tensors():
+    params = numpy_params(seed=2)
+    want = params_from_jax(params, "cpu")
+    as_tensors = {k: {n: torch.from_numpy(a).requires_grad_() for n, a in v.items()}
+                  for k, v in params.items()}
+    words = tsn.quantize_params_fixed(want)
+    for tree, ref in ((as_tensors, want), (words, words)):
+        got = params_from_jax(tree, "cpu")
+        for layer in ref:
+            for leaf in ref[layer]:
+                assert got[layer][leaf].dtype == ref[layer][leaf].dtype
+                assert torch.equal(got[layer][leaf], ref[layer][leaf].detach())
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax({**params, "dense": {"w": torch.zeros(10, 49), "b": torch.zeros(10)}},
+                        "cpu")
 
 
 def test_param_count_and_registry():
