@@ -25,7 +25,16 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             PyTorch call computes the same function, that call's time.
             frame_trunk runs in the three wraparound configs (a saturating
             one must raise) at 112x112 (chosen and forced tiles), 104x132
-            (H/4 even, W/4 odd), 512x512 and 1080x1920
+            (H/4 even, W/4 odd), 512x512 and 1080x1920.  Then the float and
+            int8 kernels: sigmoid_pla (torch.equal, shapes up to 2^24
+            words, the breakpoints, +-0.0 and their float neighbours),
+            maxpool2d (torch.equal in float32 and bfloat16, odd extents,
+            NaN), conv2d (allclose 2e-5: the reference's six test shapes,
+            each activation at the engine's shapes, a 512x512 stride-2
+            frame) and quant_matmul (an exact int32 sum at unit scales;
+            rtol 1e-6 from (64,49,10) up to (4096,4096,4096)); library
+            calls F.conv2d (TF32 off), F.max_pool2d and torch._int_mm where
+            its shape rules allow
   serve     VisionEngine(backend="fixed_cuda", batch_size=64, device="cuda"),
             threaded, over 1024 synth_mnist images in Q16.16 and in Q8.8:
             every score word equals the plain `fixed` backend's on the CPU,
@@ -36,6 +45,13 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   composed  the same engine over a backend whose stage is the composed
             conv+PLAN launch then the pool launch (the hooks the frame sweep
             composes): drives the max-pool kernel on a served path
+  serve     the float and int8 backends: VisionEngine over 1024 requests
+            on cuda_plan and int8 and 256 on cuda, ref and plan; every
+            score within 2e-5 of the same formed batch on the backend's
+            plain counterpart on the CPU (ref for cuda, plan for cuda_plan,
+            int8 on CPU tensors), int8's weight and activation words equal,
+            and per step 2 conv2d + 2 maxpool2d (+1 sigmoid_pla on
+            cuda_plan), 1 quant_matmul on int8, none on ref and plan
   sweep     StreamingPipeline(SyntheticVideoSource(seed=7, 112x112, 64
             frames), VisionEngine(backend="fixed_cuda", device="cuda"),
             FcnSweep(stride=8)) in throughput mode, in Q16.16 and Q8.8: each
@@ -46,7 +62,13 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             window and p50/p99 frame latency.  Then the composed route
             (megakernel=False: 20 conv, 2 pool, 12 sigmoid, 1 dense per
             frame) beside it, and a 4-frame 1080x1920 clip through the
-            frame_trunk route, word-checked against the CPU
+            frame_trunk route, word-checked against the CPU.  Then the same
+            64-frame 112x112 clip on cuda_plan and int8 (the composed
+            cascade: 20 conv2d, 2 maxpool2d, 12 sigmoid_pla a frame on
+            cuda_plan, 1 quant_matmul on int8): window scores within 2e-5
+            of the CPU sweep and tiler, detections equal (label and place;
+            score within 2e-5), windows within 2e-5 of the threshold
+            counted
   host      16 synchronous served steps: wall time per step against the
             engine's busy window per step, and the host time outside it
   profile   a torch.profiler trace of 16 served steps, then one of 16 sweep
@@ -79,6 +101,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 # int32 on the CUDA cores, not in the guide's table: 132 SMs x 64 INT32
 # lanes x 1.98 GHz boost, the clocks behind the data sheet's 67 TFLOP/s fp32
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+F32_FLOPS_PER_S = 67e12     # fp32 on the CUDA cores (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12    # int8 tensor cores, dense (NVIDIA data sheet)
+FLOAT_TOL = 2e-5            # float scores and conv outputs, rtol = atol
 
 ENGINE_BATCH = 64
 LARGE_BATCH = 16384
@@ -99,6 +124,14 @@ KERNELS = {
                     "src/repro/kernels/quant_matmul/kernel.py:85"),
     "frame_trunk": ("src/repro_torch/csrc/frame_trunk.cu",
                     "src/repro/kernels/frame_trunk/kernel.py:172"),
+    "conv2d": ("src/repro_torch/csrc/float_kernels.cu",
+               "src/repro/kernels/conv2d/kernel.py:58"),
+    "maxpool2d": ("src/repro_torch/csrc/float_kernels.cu",
+                  "src/repro/kernels/maxpool2d/kernel.py:21"),
+    "sigmoid_pla": ("src/repro_torch/csrc/float_kernels.cu",
+                    "src/repro/kernels/sigmoid_pla/kernel.py:27"),
+    "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul/kernel.py:42"),
 }
 
 
@@ -188,9 +221,10 @@ def device_ms(fn, reps: int) -> float:
     return statistics.median(per_call)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -524,12 +558,276 @@ def phase_frame_trunk_kernel(card: str) -> dict:
     return table
 
 
-def serve_once(params, images, backend, label, card, want_per_step):
+def conv_float_work(B, H, W, cin, kh, kw, cout, Ho, Wo, act):
+    """(bytes, float32 operations) of one float conv: each input and output
+    float once; 2 per multiply-accumulate, 1 per bias add, 4 per sigmoid
+    (negate, exp, add, divide), 3 per PLAN word (abs, multiply, add)."""
+    nbytes = 4 * (B * H * W * cin + kh * kw * cin * cout + cout + B * Ho * Wo * cout)
+    per_out = 2 * kh * kw * cin + 1 + {None: 0, "sigmoid": 4, "plan": 3}[act]
+    return nbytes, B * Ho * Wo * cout * per_out
+
+
+def int_mm_allowed(M, K, N) -> bool:
+    """torch._int_mm's shape rules on CUDA: M > 16, K and N multiples of 8."""
+    return M > 16 and K % 8 == 0 and N % 8 == 0
+
+
+def phase_float_kernels(card: str) -> dict:
+    """The float and int8 kernels against their plain versions on the card,
+    then their times: median device time, bound, plain time and, where one
+    PyTorch call computes the same function, that call's time.  Each
+    kernel's row in the `kernels` line is the work one served step of 64
+    asks of it (on cuda_plan: both conv launches, both pool launches, the
+    (64,10) PLAN; on int8: the (64,49)@(49,10) dense)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.conv2d import conv2d, conv2d_plain
+    from repro_torch.kernels.maxpool2d import maxpool2d, maxpool2d_plain
+    from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
+    from repro_torch.kernels.sigmoid_pla import sigmoid_pla, sigmoid_pla_plain
+
+    expect(torch.backends.cuda.matmul.allow_tf32 is False,
+           "torch.backends.cuda.matmul.allow_tf32 is on: the float dense would "
+           "compute in TF32")
+    rng = np.random.default_rng(2027)
+    dev = torch.device("cuda")
+    E = ENGINE_BATCH
+
+    def normal(shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(
+            dev, dtype)
+
+    def timed(case, fn, plain, lib, work, rate, reps, timing):
+        nbytes, ops = work
+        b_ms, b_by = bound_ms(nbytes, ops, rate)
+        return {"case": case, "timing": timing, "ms": device_ms(fn, reps),
+                "plain_ms": device_ms(plain, max(reps // 10, 3)), "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": device_ms(lib, reps) if lib else None,
+                "bytes": nbytes, "ops": ops}
+
+    def row(name, shapes, max_err, n_checked, library):
+        eng = [r for r in shapes if r["timing"] == "engine"]
+        nbytes, ops = sum(r["bytes"] for r in eng), sum(r["ops"] for r in eng)
+        rate = INT8_OPS_PER_S if name == "quant_matmul" else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, ops, rate)
+        libs = [r["library_ms"] for r in eng]
+        table = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+                 "replaces": KERNELS[name][1], "launches": 0, "max_abs_err": max_err,
+                 "ms": sum(r["ms"] for r in eng), "plain_ms": sum(r["plain_ms"] for r in eng),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": sum(libs) if all(v is not None for v in libs) else None}
+        emit("kernel", name=name, checked=n_checked, max_abs_err=max_err,
+             launches_in_this_phase=launches().get(name, 0), card=card,
+             engine_step={k: v for k, v in table.items() if k != "launches"},
+             shapes=shapes, library=library)
+        return table
+
+    table = {}
+    reset_launches()
+
+    # -- sigmoid_pla: torch.equal, the breakpoints and their neighbours -------
+    pts = np.float32([0.0, 1.0, 2.375, 5.0])
+    near = np.concatenate([pts, np.nextafter(pts, np.float32(-np.inf)),
+                           np.nextafter(pts, np.float32(np.inf))])
+    specials = np.concatenate([near, -near]).astype(np.float32)      # +-0.0 included
+    shapes, n_checked = [], 0
+    for shape in ((7,), (33, 5), (2, 3, 4, 5), (1000,), (256, 128), (1 << 24,)):
+        for scale in (0.1, 4.0, 20.0):
+            x = (rng.normal(size=shape) * scale).astype(np.float32).reshape(-1)
+            k = min(x.size, specials.size)
+            x[:k] = specials[:k]
+            x = torch.from_numpy(x.reshape(shape)).to(dev)
+            got, want = sigmoid_pla(x), sigmoid_pla_plain(x)
+            torch.cuda.synchronize()
+            expect(torch.equal(got, want),
+                   f"sigmoid_pla {shape} x{scale}: kernel differs from plain (max |err| "
+                   f"{float((got - want).abs().max())})")
+            n_checked += 1
+    x = normal((E, 10), 4.0)
+    shapes.append(timed("engine (64,10)", lambda: sigmoid_pla(x),
+                        lambda: sigmoid_pla_plain(x), None, (8 * x.numel(), 3 * x.numel()),
+                        F32_FLOPS_PER_S, 200, "engine"))
+    xl = normal((1 << 24,), 4.0)
+    shapes.append(timed("large (2^24,)", lambda: sigmoid_pla(xl),
+                        lambda: sigmoid_pla_plain(xl), None,
+                        (8 * xl.numel(), 3 * xl.numel()), F32_FLOPS_PER_S, 20, "large"))
+    table["sigmoid_pla"] = row("sigmoid_pla", shapes, 0.0, n_checked,
+                               "none: no single PyTorch call computes the PLAN")
+
+    # -- maxpool2d: torch.equal in float32 and bfloat16 -----------------------
+    def lib_pool(x):
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+    shapes, n_checked = [], 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((E, 28, 28, 1), (E, 14, 14, 1), (2, 15, 9, 2), (3, 37, 53, 16),
+                      (1, 512, 512, 1)):
+            x = normal(shape, 1.0, dtype)
+            got, want = maxpool2d(x), maxpool2d_plain(x)
+            torch.cuda.synchronize()
+            expect(got.dtype == dtype and torch.equal(got, want),
+                   f"maxpool2d {shape} {dtype}: kernel differs from plain")
+            expect(torch.equal(lib_pool(x), got), f"maxpool2d {shape}: F.max_pool2d differs")
+            n_checked += 1
+        x = normal((2, 15, 9, 2), 1.0, dtype)
+        x[0, 1, 1, 0] = float("nan")
+        got, want = maxpool2d(x), maxpool2d_plain(x)
+        expect(torch.equal(torch.isnan(got), torch.isnan(want))
+               and bool(torch.isnan(got[0, 0, 0, 0]))
+               and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)),
+               f"maxpool2d {dtype}: NaN does not propagate as in torch.maximum")
+        n_checked += 1
+    for H in (28, 14):
+        x = normal((E, H, H, 1))
+        n_out = E * (H // 2) ** 2
+        shapes.append(timed(f"engine (64,{H},{H},1)", lambda x=x: maxpool2d(x),
+                            lambda x=x: maxpool2d_plain(x), lambda x=x: lib_pool(x),
+                            (4 * (4 * n_out + n_out), 3 * n_out), F32_FLOPS_PER_S, 200,
+                            "engine"))
+    x = normal((1, 512, 512, 1))
+    shapes.append(timed("frame (1,512,512,1)", lambda: maxpool2d(x),
+                        lambda: maxpool2d_plain(x), lambda: lib_pool(x),
+                        (4 * 5 * 256 * 256, 3 * 256 * 256), F32_FLOPS_PER_S, 50, "large"))
+    table["maxpool2d"] = row("maxpool2d", shapes, 0.0, n_checked,
+                             "F.max_pool2d(kernel 2) on the NCHW view")
+
+    # -- conv2d: allclose 2e-5 --------------------------------------------------
+    def lib_conv(x, w, b):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding="same")
+        return y.permute(0, 2, 3, 1)
+
+    cases = [((2, 28, 28, 1), (2, 2, 1, 1), "SAME", 1), ((2, 14, 14, 1), (2, 2, 1, 1), "SAME", 1),
+             ((1, 16, 16, 3), (3, 3, 3, 8), "SAME", 1), ((3, 16, 12, 4), (2, 2, 4, 4), "VALID", 1),
+             ((1, 32, 32, 2), (5, 5, 2, 6), "SAME", 2), ((2, 8, 8, 8), (1, 1, 8, 16), "VALID", 1),
+             ((E, 28, 28, 1), (2, 2, 1, 1), "SAME", 1), ((E, 14, 14, 1), (2, 2, 1, 1), "SAME", 1),
+             ((1, 512, 512, 1), (2, 2, 1, 16), "SAME", 2)]
+    shapes, n_checked, max_err = [], 0, 0.0
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False       # F.conv2d in full float32
+    try:
+        for xs, ws, pad, stride in cases:
+            x, w, b = normal(xs, 3.0), normal(ws), normal(ws[3:])
+            for act in (None, "sigmoid", "plan"):
+                kw = dict(padding=pad, stride=stride, activation=act)
+                got, want = conv2d(x, w, b, **kw), conv2d_plain(x, w, b, **kw)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                expect(got.shape == want.shape
+                       and torch.allclose(got, want, rtol=FLOAT_TOL, atol=FLOAT_TOL),
+                       f"conv2d {xs} {ws} {pad} s{stride} {act}: kernel differs from "
+                       f"plain (max |err| {err})")
+                max_err = max(max_err, err)
+                n_checked += 1
+            if xs[0] == E:                           # the served step's two convs
+                expect(torch.allclose(lib_conv(x, w, b), conv2d(x, w, b), rtol=FLOAT_TOL,
+                                      atol=FLOAT_TOL), f"conv2d {xs}: F.conv2d differs")
+                Ho = xs[1]
+                for act in ("plan", None):
+                    shapes.append(timed(
+                        f"engine {xs} {act or 'pre-activation'}",
+                        lambda x=x, w=w, b=b, act=act: conv2d(x, w, b, activation=act),
+                        lambda x=x, w=w, b=b, act=act: conv2d_plain(x, w, b, activation=act),
+                        (lambda x=x, w=w, b=b: lib_conv(x, w, b)) if act is None else None,
+                        conv_float_work(E, Ho, Ho, 1, 2, 2, 1, Ho, Ho, act), F32_FLOPS_PER_S,
+                        200, "engine" if act == "plan" else "engine, no activation"))
+        x, w, b = normal((1, 512, 512, 1), 3.0), normal((2, 2, 1, 16)), normal((16,))
+        shapes.append(timed("frame (1,512,512,1)x(2,2,1,16) stride 2 plan",
+                            lambda: conv2d(x, w, b, stride=2, activation="plan"),
+                            lambda: conv2d_plain(x, w, b, stride=2, activation="plan"), None,
+                            conv_float_work(1, 512, 512, 1, 2, 2, 16, 256, 256, "plan"),
+                            F32_FLOPS_PER_S, 50, "large"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    conv_row = row("conv2d", shapes, max_err, n_checked,
+                   "F.conv2d(padding='same') with bias, no activation, TF32 off")
+    # the library computes the pre-activation conv: its time sits beside the
+    # kernel's pre-activation time of the same two convs
+    conv_row["library_ms"] = sum(r["library_ms"] for r in shapes
+                                 if r["timing"] == "engine, no activation")
+    table["conv2d"] = conv_row
+
+    # -- quant_matmul: an exact int32 sum; rtol 1e-6 after the dequant --------
+    def i8(shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
+
+    xq, wq = i8((32, 1024)), i8((1024, 16))
+    xq[0], wq[:, 0] = -128, -128                     # the largest products
+    got = quant_matmul(xq, wq, 1.0, 1.0)
+    exact = (xq.cpu().to(torch.int64) @ wq.cpu().to(torch.int64)).to(torch.float32)
+    expect(torch.equal(got.cpu(), exact), "quant_matmul: the int32 sum is not exact")
+    shapes, n_checked, max_rel, max_abs = [], 1, 0.0, 0.0
+    not_allowed = []
+    for M, K, N in ((E, 49, 10), (100, 300, 70), (513, 257, 129), (16384, 49, 10),
+                    (4096, 4096, 4096)):
+        xq, wq = i8((M, K)), i8((K, N))
+        sx = torch.rand(M, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(N, device=dev) * 0.1 + 1e-3
+        got, want = quant_matmul(xq, wq, sx, sw), quant_matmul_plain(xq, wq, sx, sw)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        expect(torch.allclose(got, want, rtol=1e-6, atol=0),
+               f"quant_matmul ({M},{K},{N}): kernel differs from plain (max rel {rel})")
+        max_rel = max(max_rel, rel)
+        max_abs = max(max_abs, float((got - want).abs().max()))
+        n_checked += 1
+        lib = None
+        if int_mm_allowed(M, K, N):
+            lib_out = torch._int_mm(xq, wq).to(torch.float32) * sx[:, None] * sw[None, :]
+            expect(torch.allclose(lib_out, got, rtol=1e-6, atol=0),
+                   f"quant_matmul ({M},{K},{N}): torch._int_mm differs")
+            lib = lambda xq=xq, wq=wq: torch._int_mm(xq, wq)       # noqa: E731
+        else:
+            not_allowed.append([M, K, N])
+        if (M, K, N) in ((E, 49, 10), (16384, 49, 10), (4096, 4096, 4096)):
+            reps = 200 if M == E else (50 if K == 49 else 5)
+            shapes.append(timed(
+                f"({M},{K})@({K},{N})", lambda xq=xq, wq=wq, sx=sx, sw=sw:
+                quant_matmul(xq, wq, sx, sw),
+                lambda xq=xq, wq=wq, sx=sx, sw=sw: quant_matmul_plain(xq, wq, sx, sw), lib,
+                (M * K + K * N + 4 * (M + N) + 4 * M * N, 2 * M * K * N), INT8_OPS_PER_S,
+                reps, "engine" if M == E else "large"))
+    emit("kernel", name="quant_matmul", max_rel_err=max_rel)
+    table["quant_matmul"] = row(
+        "quant_matmul", shapes, max_abs, n_checked,
+        "torch._int_mm (the int32 product alone) where its shape rules allow "
+        f"(M > 16, K and N multiples of 8); not at {not_allowed}")
+    return table
+
+
+def fmt_of(be) -> str:
+    cfg = getattr(be, "cfg", None)
+    return f"Q{cfg.int_bits + 1}.{cfg.frac_bits}" if cfg is not None else \
+        ("int8" if be.name == "int8" else "float32")
+
+
+def compare_scores(got, want, tol: float, what: str) -> float:
+    """Raise unless `got` equals `want` (tol 0: int32 words) or is within
+    `tol` of it (rtol = atol); return the max |difference|."""
+    import numpy as np
+    expect(got.shape == want.shape and got.dtype == want.dtype,
+           f"{what}: scores {got.dtype} {got.shape}, expected {want.dtype} {want.shape}")
+    err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max()) \
+        if got.size else 0.0
+    ok = np.array_equal(got, want) if tol == 0 else np.allclose(got, want, rtol=tol, atol=tol)
+    expect(ok, f"{what}: max |err| {err} against the CPU (tolerance {tol})")
+    return err
+
+
+def serve_once(params, images, backend, label, card, want_per_step, *, plain=None,
+               tol=0.0):
     """Serve `images` through a threaded engine built from the numpy
-    `params`; check words, ledger and launch counts; return the counts."""
+    `params`; check the scores against `plain` (default: the plain `fixed`
+    backend in the engine's format) on the CPU over the same formed batches
+    (int8 quantizes its activations per batch), equal words where `tol` is
+    0; check the ledger and the launch counts; return the counts."""
+    import collections
+
     import numpy as np
     import torch
     from repro_torch.core import backends as B
+    from repro_torch.core import ptq
     from repro_torch.core import smallnet
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serving.vision_engine import VisionEngine
@@ -537,6 +835,7 @@ def serve_once(params, images, backend, label, card, want_per_step):
     eng = VisionEngine(params_on(params, "cuda"), backend=backend,
                        batch_size=ENGINE_BATCH, device="cuda")
     be = eng.backend
+    plain = B.FixedBackend(cfg=be.cfg) if plain is None else B.get_backend(plain)
     images_in = list(images)
     reset_launches()
     eng.start()
@@ -551,27 +850,55 @@ def serve_once(params, images, backend, label, card, want_per_step):
     expect(all(r is not None for r in results), f"{label}: a request was shed")
     scores = np.stack([r.scores for r in results])
     preds = np.asarray([r.pred for r in results])
-    plain_be = B.FixedBackend(cfg=be.cfg)
+    # the CPU reference over the batches the engine formed: a batch's slots
+    # hold its requests in submission order, zero-padded to the batch size
+    batches = collections.defaultdict(list)
+    for i, r in enumerate(results):
+        batches[r.batch_index].append(i)
+    cpu_params = plain.prepare_params(params_on(params, "cpu"), "cpu")
+    want, words_checked = np.empty_like(scores), 0
     with torch.inference_mode():
-        want = smallnet.apply(params_on(params, "cpu"), torch.from_numpy(images),
-                              backend=plain_be)
-    want_np = want.numpy()
-    expect(scores.dtype == np.int32 and scores.shape == (len(images), 10),
-           f"{label}: scores {scores.dtype} {scores.shape}")
-    expect(np.array_equal(scores, want_np),
-           f"{label}: {int((scores != want_np).sum())} served score words differ "
-           "from the plain fixed backend on the CPU")
-    expect(np.array_equal(preds, smallnet.predict(want).numpy()),
-           f"{label}: Max Finder outputs differ")
+        for idx in batches.values():
+            batch = np.zeros((ENGINE_BATCH,) + images.shape[1:], np.float32)
+            batch[:len(idx)] = images[idx]
+            x = torch.from_numpy(batch)
+            want[idx] = smallnet.apply(cpu_params, x, backend=plain)[:len(idx)].numpy()
+            if isinstance(be, B.Int8Backend):
+                # the int8 words the dense MAC takes: weights and activations
+                act = dataclasses.replace(be.qcfg, per_channel=False)
+                q_dev, q_cpu = (ptq.quantize(smallnet.conv_trunk(
+                    p, x.to(dev), backend=be).reshape(ENGINE_BATCH, -1), act).q.cpu()
+                    for p, dev in ((eng.params, "cuda"), (cpu_params, "cpu")))
+                expect(torch.equal(q_dev, q_cpu),
+                       f"{label}: quantized activation words differ from the CPU's")
+                words_checked += q_dev.numel()
+    if isinstance(be, B.Int8Backend):
+        for layer in ("conv1", "conv2", "dense"):
+            w_dev, w_cpu = eng.params[layer]["w"], cpu_params[layer]["w"]
+            expect(torch.equal(w_dev.q.cpu(), w_cpu.q)
+                   and torch.equal(w_dev.scale.cpu(), w_cpu.scale),
+                   f"{label}: {layer} int8 weight words differ from the CPU's")
+            words_checked += w_dev.q.numel()
+    max_err = compare_scores(scores, want, tol, f"{label}: served scores")
+    # the Max Finder: equal, except where the CPU's two top scores lie within
+    # the tolerance of each other (counted, never skipped silently)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    near_ties = (top2[:, 1] - top2[:, 0]) <= tol
+    want_preds = smallnet.predict(torch.from_numpy(want)).numpy()
+    differ = preds != want_preds
+    expect(not differ.any() or (tol > 0 and near_ties[differ].all()),
+           f"{label}: Max Finder outputs differ ({int(differ.sum())} requests)")
     expect(st["accounted"] and st["n"] == len(images) and st["shed"] == 0,
            f"{label}: ledger {st}")
     steps = st["batches"]
     expected = {k: v * steps for k, v in want_per_step.items() if v}
     expect(counts == expected, f"{label}: launches {counts}, expected {expected}")
     emit("serve" if label.startswith("serve") else "composed", path=label,
-         backend=be.name, fmt=f"Q{be.cfg.int_bits + 1}.{be.cfg.frac_bits}",
-         requests=len(images), steps=steps, launches=counts,
-         words_equal_cpu_plain=True, accounted=st["accounted"],
+         backend=be.name, fmt=fmt_of(be), against_cpu=plain.name,
+         requests=len(images), steps=steps, launches=counts, tolerance=tol,
+         max_abs_err=max_err, preds_differing_at_near_ties=int(differ.sum()),
+         near_ties=int(near_ties.sum()) if tol else 0,
+         int8_words_equal=words_checked, accounted=st["accounted"],
          # the client's window: first submit to the last result in hand
          wall_s=wall_s, served_per_wall_s=st["n"] / wall_s,
          # the engine's busy window: the sum of [t0, t_done] over the steps
@@ -583,20 +910,52 @@ def serve_once(params, images, backend, label, card, want_per_step):
     return counts
 
 
-def sweep_once(params, source, cfg, threshold, label, card, want_per_frame, *,
-               megakernel=None, tiler_scores=None):
-    """Drive StreamingPipeline(source, VisionEngine(fixed_cuda, cuda),
-    FcnSweep) in throughput mode; check every frame's detections and the
-    score words the pipeline itself produced against the plain `fixed`
-    sweep on the CPU, the ledger and the launches per frame; return (launch
-    counts, frames/s over the client's wall window).  `tiler_scores(frame)`,
-    when given, are the host tiler's CPU score words for the frame, which
-    the first frames' words must also equal."""
-    import dataclasses
+def ambiguity(sweep, scores, positions, tol: float) -> dict:
+    """Where float detections can legitimately differ between two devices
+    whose scores agree within `tol`, counted from one device's scores: a
+    window's top confidence within `tol` of the threshold (it may pass on
+    one device and not the other), a candidate window's two top classes
+    within `tol` (its label may differ), and two candidate windows within
+    the dedup distance whose confidences lie within `tol` (the greedy dedup
+    may keep the other one)."""
+    import numpy as np
+    conf = sweep._confidences(scores)
+    best = conf.max(-1)
+    top2 = np.sort(conf, axis=-1)[:, -2:]
+    cand = np.flatnonzero(best >= sweep.threshold - tol)
+    pos = np.asarray(positions)
+    pairs = sum(int(((np.abs(best[cand[i + 1:]] - best[c]) <= tol)
+                     & (np.abs(pos[cand[i + 1:]] - pos[c]).max(-1) <= sweep.min_dist)).sum())
+                for i, c in enumerate(cand))
+    return {"near_threshold": int((np.abs(best - sweep.threshold) <= tol).sum()),
+            "near_label_ties": int(((top2[cand, 1] - top2[cand, 0]) <= tol).sum()),
+            "near_order_pairs": pairs}
 
+
+def same_detections(got, want, tol: float) -> bool:
+    """Equal detections; with a tolerance, equal label, place and size and a
+    score within `tol`."""
+    if tol == 0:
+        return got == want
+    return len(got) == len(want) and all(
+        (g.label, g.y, g.x, g.size) == (w.label, w.y, w.x, w.size)
+        and abs(g.score - w.score) <= tol for g, w in zip(got, want))
+
+
+def sweep_once(params, source, backend, plain, threshold, label, card, want_per_frame, *,
+               megakernel=None, tiler_scores=None, tol=0.0):
+    """Drive StreamingPipeline(source, VisionEngine(backend, cuda), FcnSweep)
+    in throughput mode; check every frame's detections and the scores the
+    pipeline itself produced against the `plain` backend's sweep on the CPU
+    (equal words where `tol` is 0, else within `tol`), the ledger and the
+    launches per frame; return (launch counts, frames/s over the client's
+    wall window).  `tiler_scores(frame)`, when given, are the host tiler's
+    CPU scores for the frame, which the first frames' scores must also
+    match."""
     import numpy as np
     import torch
     from repro_torch.core import backends as B
+    from repro_torch.core import fixed_point as fxp
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serving.vision_engine import VisionEngine
     from repro_torch.streaming import FcnSweep, StreamingPipeline
@@ -613,9 +972,10 @@ def sweep_once(params, source, cfg, threshold, label, card, want_per_frame, *,
             return out
 
     frames = source.frames()
+    backend, plain = B.get_backend(backend), B.get_backend(plain)
+    cfg = getattr(backend, "cfg", fxp.Q16_16)        # the word format of int scores
     sweep = RecordingSweep(stride=SWEEP_STRIDE, threshold=threshold, cfg=cfg,
                            megakernel=megakernel)
-    plain = B.FixedBackend(cfg=cfg)
     cpu_params = params_on(params, "cpu")
     # the offline detect of the plain backend on the CPU, frame by frame
     cpu_scores, want = [], []
@@ -623,7 +983,11 @@ def sweep_once(params, source, cfg, threshold, label, card, want_per_frame, *,
         fb, pos = sweep.extract(f)
         cpu_scores.append(sweep.score(cpu_params, fb, backend=plain, device="cpu"))
         want.append(sweep.aggregate(cpu_scores[-1], pos, fb))
-    eng = VisionEngine(params_on(params, "cuda"), backend=B.FixedCudaBackend(cfg=cfg),
+    # float scores: where the CPU's detections are ambiguous within the
+    # tolerance (counted per frame, never skipped silently)
+    amb = [ambiguity(sweep, sc, sweep.positions(source.frame_shape), tol)
+           for sc in cpu_scores] if tol else []
+    eng = VisionEngine(params_on(params, "cuda"), backend=backend,
                        batch_size=ENGINE_BATCH, device="cuda")
     pipe = StreamingPipeline(source, eng, sweep)      # runs one warm-up sweep
     torch.cuda.synchronize()
@@ -639,21 +1003,30 @@ def sweep_once(params, source, cfg, threshold, label, card, want_per_frame, *,
            f"{label}: ledger frames_in={st['frames_in']} served={st['frames_served']} "
            f"dropped={st['frames_dropped']}")
     expect([r.index for r in results] == list(range(n)), f"{label}: frames out of order")
+    expect(len(sweep.words) == n, f"{label}: {len(sweep.words)} sweep calls for {n} frames")
+    # every frame's detections equal the CPU's; with float scores a frame may
+    # differ only where the CPU's own detections are ambiguous within the
+    # tolerance, and then they must equal the aggregate of the card's scores
+    differing = []
     for r in results:
-        expect(r.detections == want[r.index],
-               f"{label}: frame {r.index} detections differ from the plain CPU sweep")
+        if same_detections(r.detections, want[r.index], tol):
+            continue
+        fb, pos = sweep.extract(frames[r.index])
+        expect(tol > 0 and any(amb[r.index].values())
+               and r.detections == sweep.aggregate(sweep.words[r.index], pos, fb),
+               f"{label}: frame {r.index} detections differ from the plain CPU sweep "
+               f"({amb[r.index] if tol else 'exact words'})")
+        differing.append(r.index)
     expected = {k: v * n for k, v in want_per_frame.items() if v}
     expect(counts == expected, f"{label}: launches {counts}, expected {expected}")
-    # the score words the pipeline produced, every frame's, against the
-    # plain sweep on the CPU; the first frames' also against the host tiler
-    expect(len(sweep.words) == n, f"{label}: {len(sweep.words)} sweep calls for {n} frames")
-    words_checked = 0
+    # the scores the pipeline produced, every frame's, against the plain
+    # sweep on the CPU; the first frames' also against the host tiler
+    words_checked, max_err = 0, 0.0
     for f, got in zip(frames, sweep.words):
-        expect(np.array_equal(got, cpu_scores[f.index]),
-               f"{label}: frame {f.index} score words differ from the CPU sweep")
+        max_err = max(max_err, compare_scores(got, cpu_scores[f.index], tol,
+                                              f"{label}: frame {f.index} sweep"))
         if tiler_scores is not None and f.index < 4:
-            expect(np.array_equal(got, tiler_scores(f)),
-                   f"{label}: frame {f.index} score words differ from the CPU tiler")
+            compare_scores(got, tiler_scores(f), tol, f"{label}: frame {f.index} vs tiler")
         words_checked += got.size
     # the same sweep call outside the pipeline, timed on the first frames
     call_s = []
@@ -662,14 +1035,16 @@ def sweep_once(params, source, cfg, threshold, label, card, want_per_frame, *,
         t0 = time.perf_counter()
         got = sweep.score(eng.params, fb, backend=eng.backend, device="cuda")
         call_s.append(time.perf_counter() - t0)
-        expect(np.array_equal(got, cpu_scores[f.index]),
-               f"{label}: frame {f.index} bare sweep call differs from the CPU sweep")
-    emit("sweep", path=label, backend=eng.backend.name,
-         fmt=f"Q{cfg.int_bits + 1}.{cfg.frac_bits}", frame_shape=list(source.frame_shape),
+        compare_scores(got, cpu_scores[f.index], tol, f"{label}: frame {f.index} bare call")
+    emit("sweep", path=label, backend=eng.backend.name, fmt=fmt_of(eng.backend),
+         against_cpu=plain.name, frame_shape=list(source.frame_shape),
          frames=n, windows_per_frame=len(sweep.positions(source.frame_shape)),
          megakernel=megakernel, threshold=threshold, launches=counts,
          launches_per_frame={k: v / n for k, v in counts.items()},
-         detections=st["detections_total"], detections_equal_cpu_plain=True,
+         detections=st["detections_total"], frames_detections_equal_cpu=n - len(differing),
+         frames_differing_within_tolerance=differing,
+         ambiguous_within_tolerance={k: sum(a[k] for a in amb) for k in amb[0]} if amb else {},
+         tolerance=tol, max_abs_err=max_err,
          score_words_checked=words_checked, accounted=st["accounted"],
          wall_s=wall_s, frames_per_wall_s=n / wall_s, sustained_fps=st["sustained_fps"],
          latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
@@ -682,7 +1057,8 @@ def sweep_once(params, source, cfg, threshold, label, card, want_per_frame, *,
 def calibrated_threshold(params, frame, cfg, scores=None) -> float:
     """The stream benchmarks' threshold: the 80th percentile of the first
     frame's per-window top confidence, from the plain `fixed` backend on the
-    CPU (`scores`, when given, are that frame's CPU sweep scores)."""
+    CPU (`scores`, when given, are that frame's CPU sweep scores on any
+    backend)."""
     import numpy as np
     from repro_torch.core import backends as B
     from repro_torch.streaming import Tiler
@@ -697,7 +1073,8 @@ def calibrated_threshold(params, frame, cfg, scores=None) -> float:
 def phase_sweep(card: str) -> list[dict]:
     """The frame sweep on the card: 112x112 clips in Q16.16 and Q8.8 through
     the frame_trunk route, the composed route beside it, then a 1080x1920
-    clip through the frame_trunk route."""
+    clip through the frame_trunk route; then the 112x112 clip on cuda_plan
+    and int8."""
     from repro_torch.core import backends as B
     from repro_torch.core import fixed_point as fxp
     from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler
@@ -716,12 +1093,13 @@ def phase_sweep(card: str) -> list[dict]:
             tiles, _ = tiler.extract(frame)
             return tiler.score(params_on(params, "cpu"), tiles,
                                backend=B.FixedBackend(cfg=cfg), device="cpu")
-        counts, rates[fmt] = sweep_once(params, source, cfg, thr, f"sweep {fmt}", card, mega,
-                                        tiler_scores=tiler_scores)
+        counts, rates[fmt] = sweep_once(params, source, B.FixedCudaBackend(cfg=cfg),
+                                        B.FixedBackend(cfg=cfg), thr, f"sweep {fmt}", card,
+                                        mega, tiler_scores=tiler_scores)
         runs.append(counts)
     source = SyntheticVideoSource(seed=7, frame_shape=(112, 112), n_frames=SWEEP_FRAMES)
     thr = calibrated_threshold(params, source.frames()[0], fxp.Q16_16)
-    counts, rates["composed"] = sweep_once(params, source, fxp.Q16_16, thr,
+    counts, rates["composed"] = sweep_once(params, source, "fixed_cuda", "fixed", thr,
                                            "sweep composed q16_16", card, composed,
                                            megakernel=False)
     runs.append(counts)
@@ -738,8 +1116,32 @@ def phase_sweep(card: str) -> list[dict]:
     first_scores = FcnSweep(stride=SWEEP_STRIDE).score(
         params_on(params, "cpu"), fb, backend="fixed", device="cpu")
     thr = calibrated_threshold(params, first, fxp.Q16_16, scores=first_scores)
-    counts, _ = sweep_once(params, camera, fxp.Q16_16, thr, "sweep camera q16_16", card, mega)
+    counts, _ = sweep_once(params, camera, "fixed_cuda", "fixed", thr, "sweep camera q16_16",
+                           card, mega)
     runs.append(counts)
+
+    # the float and int8 backends: the composed cascade, held to the same
+    # backend's sweep on the CPU within FLOAT_TOL, and to the CPU tiler
+    per_frame = {"cuda_plan": {"conv2d": 20, "maxpool2d": 2, "sigmoid_pla": 12},
+                 "int8": {"quant_matmul": 1}}
+    for name, want_per_frame in per_frame.items():
+        source = SyntheticVideoSource(seed=7, frame_shape=(112, 112), n_frames=SWEEP_FRAMES)
+        first = source.frames()[0]
+        fb, _ = FcnSweep(stride=SWEEP_STRIDE).extract(first)
+        thr = calibrated_threshold(params, first, fxp.Q16_16, scores=FcnSweep(
+            stride=SWEEP_STRIDE).score(params_on(params, "cpu"), fb, backend=name,
+                                       device="cpu"))
+        tiler = Tiler(stride=SWEEP_STRIDE)
+
+        def tiler_scores(frame, tiler=tiler, name=name):
+            tiles, _ = tiler.extract(frame)
+            return tiler.score(params_on(params, "cpu"), tiles, backend=name, device="cpu")
+        counts, rates[name] = sweep_once(params, source, name, name, thr, f"sweep {name}",
+                                         card, want_per_frame, tiler_scores=tiler_scores,
+                                         tol=FLOAT_TOL)
+        runs.append(counts)
+    emit("sweep", path="112x112 frames/s over the wall, every backend this run swept",
+         frames_per_wall_s=rates, card=card)
     return runs
 
 
@@ -887,6 +1289,7 @@ def run(card: str, kind: str, count: int) -> None:
     phase_sweep_golden()
     table = phase_kernels(card)
     table["frame_trunk"] = phase_frame_trunk_kernel(card)
+    table.update(phase_float_kernels(card))
 
     from repro_torch.core import backends as B
     from repro_torch.core import fixed_point as fxp
@@ -911,6 +1314,16 @@ def run(card: str, kind: str, count: int) -> None:
         serve_once(params, images[:256], ComposedStages(), "composed q16_16", card,
                    dict(served, fixed_maxpool2x2=2)),
     ]
+    # the float and int8 backends, each held to its plain counterpart on the CPU
+    float_step = {"conv2d": 2, "maxpool2d": 2}
+    for backend, plain, n, per_step in (
+            ("cuda_plan", "plan", N_REQUESTS, dict(float_step, sigmoid_pla=1)),
+            ("int8", "int8", N_REQUESTS, {"quant_matmul": 1}),
+            ("cuda", "ref", 256, float_step),
+            ("ref", "ref", 256, {}),
+            ("plan", "plan", 256, {})):
+        runs.append(serve_once(params, images[:n], backend, f"serve {backend}", card,
+                               per_step, plain=plain, tol=FLOAT_TOL))
     runs += phase_sweep(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)

@@ -13,61 +13,107 @@ plus the hooks `ingest`, `flatten`, `fused_conv_act`, `fused_conv_act_pool`,
 `accumulate`, `mask_conv_weight`, `frame_trunk`, `prepare_params` and
 `params_native`.  Parameters are a dict of dicts of tensors with the
 reference's layouts: conv weights (2,2,1,1) HWIO, conv bias (1,), dense
-(49,10) and (10,).
+(49,10) and (10,); the `int8` backend's weights are `ptq.QuantTensor`s.
+The base class is the float `ref` backend; float activations are NHWC
+(B,H,W,1) float32, the fixed backends' (B,H,W) int32 words.
 
-Registered backends:
+Registered backends (the reference's name in brackets where it differs):
 
+    ref         float32 PyTorch ops, exact sigmoid (`torch.sigmoid`) — the
+                Keras counterpart; the conv and pool are the plain versions
+                of the float kernels
+    plan        the same with the float PLAN sigmoid
+    cuda        [pallas] the hand-written float kernels: the conv with its
+                fused sigmoid epilogue and the max pool
+                (`kernels/conv2d`, `kernels/maxpool2d`); the output sigmoid
+                is `torch.sigmoid`, outside any kernel as in the reference;
+                matches `ref`
+    cuda_plan   [pallas_plan] the conv with the fused PLAN epilogue, the max
+                pool, and the `sigmoid_pla` kernel after the dense layer;
+                matches `plan`
     fixed       the bit-faithful Qm.n two's-complement datapath (paper
                 §III-B) in PyTorch word ops — the plain versions of the
                 kernels, on whatever device the tensors live on
-    fixed_cuda  the same words through the hand-written CUDA kernels
-                (`kernels/fixed_conv`, `kernels/quant_matmul`,
+    fixed_cuda  [fixed_pallas] the same words through the hand-written CUDA
+                kernels (`kernels/fixed_conv`, `kernels/quant_matmul`,
                 `kernels/frame_trunk`): the fused conv -> PLAN -> maxpool
                 stage is one launch, then the dense launch and the PLAN
-                sigmoid launch; a whole frame's trunk is one launch.  The
-                counterpart of the reference's `fixed_pallas`.  On CPU
-                tensors its wrappers run the plain versions.
+                sigmoid launch; a whole frame's trunk is one launch
+    int8        post-training int8: dequant-on-use plain convs, the PLAN
+                sigmoid, and the dense layer as a true int8 MAC
+                (activations quantized per tensor, weights per channel)
+                through the `quant_matmul` kernel
 
-The float (`ref`, `plan`, `pallas*`) and `int8` backends are not ported
-yet.  `frame_trunk` is the whole-frame trunk of one frame in one step:
-`fixed` runs the untiled plain version (`frame_trunk_quad_plain`) and
-`fixed_cuda` launches the `csrc/frame_trunk.cu` kernel (its plain version
-on CPU tensors).  Both return None, as the reference's `FixedBackend`
-does, where the trunk cannot tile: a batch other than 1, an extent that
-is not a multiple of 4 or is below 4, or a saturating config.  That is
-routing to the composed stages, not a fallback: on valid geometry a build
-or launch failure raises.
+The dense product `x @ w` of the float backends stays `torch.matmul`, as
+the reference leaves it to XLA; PyTorch computes a float32 matmul in full
+float32 unless TF32 is switched on.  On CPU tensors every kernel wrapper
+runs its plain version.  `frame_trunk` is the whole-frame trunk of one
+frame in one step: `fixed` runs the untiled plain version
+(`frame_trunk_quad_plain`) and `fixed_cuda` launches the
+`csrc/frame_trunk.cu` kernel (its plain version on CPU tensors).  Both
+return None, as the reference's `FixedBackend` does, where the trunk
+cannot tile: a batch other than 1, an extent that is not a multiple of 4
+or is below 4, or a saturating config.  The float and int8 backends have
+no `frame_trunk`.  That is routing to the composed stages, not a fallback:
+on valid geometry a build or launch failure raises.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import ptq
 from repro_torch.core.device import as_device_tensor
+from repro_torch.kernels.conv2d.ops import conv2d, conv2d_plain
 from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain,
                                                 fixed_maxpool2x2,
                                                 fixed_maxpool2x2_plain,
                                                 fixed_sigmoid)
 from repro_torch.kernels.frame_trunk.ops import (frame_trunk_quad,
                                                  frame_trunk_quad_plain)
-from repro_torch.kernels.quant_matmul.ops import fixed_dense, fixed_dense_plain
+from repro_torch.kernels.maxpool2d.ops import maxpool2d, maxpool2d_plain
+from repro_torch.kernels.quant_matmul.ops import (fixed_dense, fixed_dense_plain,
+                                                  quant_matmul)
+from repro_torch.kernels.sigmoid_pla.ops import sigmoid_pla
 
 
-def tree_map(fn, tree):
-    """Apply `fn` to every leaf of a nest of dicts, lists and tuples."""
+def tree_map(fn, tree, is_leaf: Callable | None = None):
+    """Apply `fn` to every leaf of a nest of dicts, lists and tuples.  A
+    `ptq.QuantTensor` is a node, mapped field by field (`q`, then `scale`),
+    as the reference's registered pytree node is, unless `is_leaf` says it
+    is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
+    if isinstance(tree, ptq.QuantTensor):
+        return ptq.QuantTensor(fn(tree.q), fn(tree.scale))
     return fn(tree)
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     out = []
-    tree_map(out.append, tree)
+    tree_map(out.append, tree, is_leaf)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shared float primitives (the plain float datapath)
+# ---------------------------------------------------------------------------
+
+def conv_same_2x2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2x2 SAME conv, NHWC/HWIO, padded (0 before, 1 after) as Keras pads
+    even kernels: the conv kernel's plain version."""
+    return conv2d_plain(x, w, b, padding="SAME")
+
+
+def maxpool_2x2(x: torch.Tensor) -> torch.Tensor:
+    return maxpool2d_plain(x)
 
 
 # ---------------------------------------------------------------------------
@@ -76,8 +122,12 @@ def tree_leaves(tree) -> list:
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """Base class: the hooks' defaults; subclasses supply the primitives."""
-    name: str = "base"
+    """The float32 reference backend ("ref"); base class for all others.
+
+    Subclasses override the five primitives; the hooks have float/NHWC
+    defaults."""
+    name: str = "ref"
+    sigmoid_fn: Callable[[torch.Tensor], torch.Tensor] = torch.sigmoid
 
     # -- the five primitives ------------------------------------------------
     def quantize_params(self, params):
@@ -85,16 +135,16 @@ class Backend:
         return params
 
     def conv2x2_same(self, x, w, b):
-        raise NotImplementedError(f"{self.name}: conv2x2_same")
+        return conv_same_2x2(x, w, b)
 
     def maxpool2x2(self, x):
-        raise NotImplementedError(f"{self.name}: maxpool2x2")
+        return maxpool_2x2(x)
 
     def dense(self, x, w, b):
-        raise NotImplementedError(f"{self.name}: dense")
+        return x @ w + b
 
     def sigmoid(self, x):
-        raise NotImplementedError(f"{self.name}: sigmoid")
+        return self.sigmoid_fn(x)
 
     # -- hooks --------------------------------------------------------------
     def params_native(self, params) -> bool:
@@ -108,7 +158,8 @@ class Backend:
         return params if self.params_native(params) else self.quantize_params(params)
 
     def ingest(self, images):
-        """(B,H,W,1) float images -> backend activation tensor."""
+        """(B,H,W,1) float images -> backend activation tensor (NHWC float
+        here)."""
         return images
 
     def flatten(self, x):
@@ -124,7 +175,8 @@ class Backend:
         return a + b
 
     def mask_conv_weight(self, w, mask):
-        """Zero out conv taps: w (2,2,1,1), mask (2,2) of 0/1."""
+        """Zero out conv taps: w (2,2,1,1), mask (2,2) of 0/1.  Backends whose
+        weights are not plain tensors (int8's QuantTensor) override."""
         return w * torch.as_tensor(mask, dtype=w.dtype, device=w.device).reshape(2, 2, 1, 1)
 
     def fused_conv_act_pool(self, x, w, b):
@@ -168,6 +220,45 @@ def get_backend(backend: str | Backend) -> Backend:
 
 def list_backends() -> list[str]:
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Float backends: ref / plan, and the float kernels as cuda / cuda_plan
+# ---------------------------------------------------------------------------
+
+register_backend("ref", Backend())
+register_backend("plan", Backend(name="plan", sigmoid_fn=fxp.sigmoid_plan_f32))
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaFloatBackend(Backend):
+    """Convs and pools through the hand-written float kernels (the
+    reference's `PallasBackend`).  `activation` selects the conv's fused
+    epilogue: "sigmoid" (matches `ref`) or "plan" (matches `plan`); the
+    activation after the dense layer is the matching one, the
+    `sigmoid_pla` kernel for "plan".  Per served step: two conv and two
+    pool launches (and one `sigmoid_pla` launch with "plan")."""
+    name: str = "cuda"
+    activation: str = "sigmoid"
+
+    def conv2x2_same(self, x, w, b):
+        return conv2d(x, w, b, padding="SAME")
+
+    def fused_conv_act(self, x, w, b):
+        # the fused epilogue: bias + activation inside the conv kernel
+        return conv2d(x, w, b, padding="SAME", activation=self.activation)
+
+    def maxpool2x2(self, x):
+        return maxpool2d(x)
+
+    def sigmoid(self, x):
+        if self.activation == "plan":
+            return sigmoid_pla(x)
+        return torch.sigmoid(x)
+
+
+register_backend("cuda", CudaFloatBackend())
+register_backend("cuda_plan", CudaFloatBackend(name="cuda_plan", activation="plan"))
 
 
 # ---------------------------------------------------------------------------
@@ -267,3 +358,49 @@ class FixedCudaBackend(FixedBackend):
 
 
 register_backend("fixed_cuda", FixedCudaBackend())
+
+
+# ---------------------------------------------------------------------------
+# int8 backend: post-training quantization with the quant_matmul kernel
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Int8Backend(Backend):
+    """int8 weights: dequant-on-use for the (tiny) convs, a true int8 MAC for
+    the dense layer through `kernels/quant_matmul`: activations are
+    quantized per tensor on the fly, weights carry per-channel scales, the
+    products are summed exactly in int32 and dequantized in the kernel's
+    epilogue; the bias is added after it.  One `quant_matmul` launch per
+    served step or swept frame."""
+    name: str = "int8"
+    qcfg: ptq.QuantConfig = ptq.QuantConfig()
+
+    def quantize_params(self, params):
+        return ptq.quantize_tree(params, self.qcfg)
+
+    def params_native(self, params) -> bool:
+        return any(isinstance(leaf, ptq.QuantTensor) for leaf in tree_leaves(
+            params, is_leaf=lambda x: isinstance(x, ptq.QuantTensor)))
+
+    def conv2x2_same(self, x, w, b):
+        w = w.dequantize() if isinstance(w, ptq.QuantTensor) else w
+        return conv_same_2x2(x, w, b)
+
+    def mask_conv_weight(self, w, mask):
+        # conv weights are dequant-on-use anyway, so mask the float view
+        # (conv2x2_same passes plain tensors straight through)
+        w = w.dequantize() if isinstance(w, ptq.QuantTensor) else w
+        return super().mask_conv_weight(w, mask)
+
+    def dense(self, x, w, b):
+        if not isinstance(w, ptq.QuantTensor):           # float weights
+            return x @ w + b
+        xq = ptq.quantize(x, dataclasses.replace(self.qcfg, per_channel=False))
+        y = quant_matmul(xq.q, w.q, xq.scale.reshape(()), w.scale.reshape(-1))
+        return y + b
+
+    def sigmoid(self, x):
+        return fxp.sigmoid_plan_f32(x)
+
+
+register_backend("int8", Int8Backend())

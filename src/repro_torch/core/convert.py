@@ -2,16 +2,19 @@
 
 `params_from_jax(tree, device)` takes the reference's params as arrays
 (numpy, anything `np.asarray` accepts, or torch tensors on any device) —
-float, or the int32 words of its `quantize_params_fixed` — and returns the
-port's dict of tensors.  The layouts stay: conv weights (2,2,1,1) HWIO and
-biases (1,), dense (49,10) and (10,), so both packages compute the same
-thing from the same numbers.
+float, the int32 words of its `quantize_params_fixed`, or the int8
+`QuantTensor`s of its `quantize_params_int8` (recognized by their `.q`
+and `.scale`, without importing the reference) — and returns the port's
+dict of tensors (and `ptq.QuantTensor`s).  The layouts stay: conv
+weights (2,2,1,1) HWIO and biases (1,), dense (49,10) and (10,), so both
+packages compute the same thing from the same numbers.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import ptq
 from repro_torch.core.device import resolve_device
 
 SHAPES = {
@@ -21,6 +24,28 @@ SHAPES = {
 }
 
 
+def _array(a) -> np.ndarray:
+    return np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a)
+
+
+def _quant_leaf(name: str, a, shape: tuple, dev: torch.device) -> ptq.QuantTensor:
+    """The reference's `ptq.QuantTensor` (anything with `.q` int8 words and a
+    float `.scale` broadcastable against them) -> the port's."""
+    q, scale = _array(a.q), _array(a.scale)
+    if q.shape != shape or q.dtype != np.int8:
+        raise TypeError(f"{name}.q: expected int8 words of shape {shape}, "
+                        f"got {q.dtype} {q.shape}")
+    try:
+        fits = np.broadcast_shapes(scale.shape, shape) == shape
+    except ValueError:
+        fits = False
+    if scale.dtype.kind != "f" or not fits:
+        raise TypeError(f"{name}.scale: expected float scales broadcastable to "
+                        f"{shape}, got {scale.dtype} {scale.shape}")
+    return ptq.QuantTensor(torch.tensor(q, device=dev),
+                           torch.tensor(scale.astype(np.float32), device=dev))
+
+
 def params_from_jax(tree: dict, device: torch.device | str | None = None) -> dict:
     dev = resolve_device(device)
     out: dict = {}
@@ -28,7 +53,10 @@ def params_from_jax(tree: dict, device: torch.device | str | None = None) -> dic
         out[layer] = {}
         for leaf, shape in leaves.items():
             a = tree[layer][leaf]
-            a = np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a)
+            if hasattr(a, "q") and hasattr(a, "scale"):
+                out[layer][leaf] = _quant_leaf(f"{layer}.{leaf}", a, shape, dev)
+                continue
+            a = _array(a)
             if a.shape != shape:
                 raise ValueError(f"{layer}.{leaf}: expected shape {shape}, got {a.shape}")
             if a.dtype.kind == "f":

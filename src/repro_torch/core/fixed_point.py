@@ -14,7 +14,9 @@ weights and activations as 32-bit two's-complement fixed point; here:
     before the final wrap to `total_bits`
 
 Every wrap is written out in int64 (`_wrap`), so nothing leans on what a
-narrowing cast does with an out-of-range value.  The functions are plain
+narrowing cast does with an out-of-range value.  `sigmoid_plan_f32` is the
+float PLAN sigmoid of the float backends (the plain version of the
+`sigmoid_pla` kernel).  The functions are plain
 tensor code: they run on whatever device their inputs live on, and they
 are the "plain version" the CUDA kernels in `repro_torch.kernels` are held
 against.
@@ -203,3 +205,15 @@ def fixed_sigmoid_plan(x: torch.Tensor,
                         shift_right_round(ax, 2, rn) + c.c05)))
     y = _wrap(y, 32).to(torch.int64)
     return _wrap(torch.where(x < 0, c.one - y, y), 32)
+
+
+def sigmoid_plan_f32(x: torch.Tensor) -> torch.Tensor:
+    """Float PLAN sigmoid (the same breakpoints 1, 2.375 and 5), the port of
+    the reference's `sigmoid_plan_f32`: each affine piece is a multiply then
+    an add, each rounded on its own, and `x < 0` picks the odd half."""
+    ax = torch.abs(x)
+    y = torch.where(ax >= 5.0, 1.0,
+                    torch.where(ax >= 2.375, 0.03125 * ax + 0.84375,
+                                torch.where(ax >= 1.0, 0.125 * ax + 0.625,
+                                            0.25 * ax + 0.5)))
+    return torch.where(x < 0, 1.0 - y, y)

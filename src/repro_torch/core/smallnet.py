@@ -11,15 +11,17 @@ Port of `repro.core.smallnet`.  Architecture (paper §III-A, Fig. 2):
 Parameter count: (2*2*1*1 + 1) * 2 + 49*10 + 10 = 510.
 
 The graph lives once in `apply(params, images, backend=...)`; a backend
-(core/backends.py) supplies the layer primitives.  Registered here:
-"fixed" (Qm.n words in PyTorch ops) and "fixed_cuda" (the same words
-through the CUDA kernels).
+(core/backends.py) supplies the layer primitives: the float "ref" and
+"plan", "cuda" and "cuda_plan" (the float kernels), the Qm.n "fixed" and
+"fixed_cuda" (the fixed-point kernels) and "int8" (the `quant_matmul`
+kernel).  Scores are float32 in (0, 1) on the float and int8 backends and
+Qm.n int32 words on the fixed ones; `predict` takes both.
 
 Device rule (core/device.py): images that are a tensor stay on its device;
 anything else goes to `device`, which defaults to "cuda" and raises where
 there is none.  Params are moved next to the images.  There is no mesh, so
 the reference's `_constrain_batch` has no counterpart.  Training
-(`init_params`, `loss_fn`, `deploy`) is not ported yet.
+(`init_params`, `loss_fn`, `forward_logits`, `deploy`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.core import backends as B
 from repro_torch.core import fixed_point as fxp
+from repro_torch.core import ptq
 from repro_torch.core.device import as_device_tensor
 
 
@@ -40,7 +43,8 @@ def _images(images, device) -> torch.Tensor:
 
 def _conv_stages(be: B.Backend, p: dict, images: torch.Tensor) -> torch.Tensor:
     """Ingest + both conv->act->pool stages: images -> pooled feature maps
-    ((B,7,7) words for 28x28 inputs; any extent divides through as H/4 x W/4)."""
+    ((B,7,7) words or (B,7,7,1) floats for 28x28 inputs; any extent divides
+    through as H/4 x W/4)."""
     x = be.ingest(images)
     x = be.fused_conv_act_pool(x, p["conv1"]["w"], p["conv1"]["b"])
     return be.fused_conv_act_pool(x, p["conv2"]["w"], p["conv2"]["b"])
@@ -54,11 +58,11 @@ def _dense_preact(be: B.Backend, p: dict, feats: torch.Tensor) -> torch.Tensor:
 def conv_trunk(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
                device: torch.device | str | None = None) -> torch.Tensor:
     """The conv half of the pipeline: images (B,H,W,1) -> pooled feature maps
-    (B,H/4,W/4).  `apply(params, x) == dense_head(params, conv_trunk(params,
-    x))`.  A single frame of the pooled-lattice geometry takes the backend's
-    `frame_trunk` fast path (one `frame_trunk` launch on `fixed_cuda`); its
-    interior map is word-identical to the composed stages, which every
-    other input runs."""
+    ((B,H/4,W/4) words, (B,H/4,W/4,1) floats).  `apply(params, x) ==
+    dense_head(params, conv_trunk(params, x))`.  A single frame of the
+    pooled-lattice geometry takes the backend's `frame_trunk` fast path (one
+    `frame_trunk` launch on `fixed_cuda`); its interior map is
+    word-identical to the composed stages, which every other input runs."""
     be = B.get_backend(backend)
     x = _images(images, device)
     p = be.prepare_params(params, x.device)
@@ -72,7 +76,7 @@ def conv_trunk(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
 def dense_head(params: dict, feats, *, backend: str | B.Backend = "fixed_cuda",
                device: torch.device | str | None = None) -> torch.Tensor:
     """The 49->10 dense classifier + output sigmoid over pooled feature maps
-    ((B,7,7) words, or already-flat (B,49))."""
+    ((B,7,7) words, (B,7,7,1) floats, or already-flat (B,49))."""
     be = B.get_backend(backend)
     feats = as_device_tensor(feats, device)
     p = be.prepare_params(params, feats.device)
@@ -84,12 +88,39 @@ def apply(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
     """Single entry point: images (B,28,28,1) -> class scores (B,10).
 
     `params` may be float (quantized on the way in, idempotently) or
-    already backend-native (the int32 words of `quantize_params_fixed`).
-    Scores are Qm.n int32 words; `predict` is the Max Finder over them."""
+    already backend-native (the int32 words of `quantize_params_fixed`, the
+    QuantTensors of `quantize_params_int8`).  Scores are float32 in (0, 1)
+    on the float and int8 backends and Qm.n int32 words on the fixed ones;
+    `predict` is the Max Finder over either."""
     be = B.get_backend(backend)
     x = _images(images, device)
     p = be.prepare_params(params, x.device)
     return be.sigmoid(_dense_preact(be, p, _conv_stages(be, p, x)))
+
+
+def forward(params: dict, images, *, sigmoid=torch.sigmoid,
+            device: torch.device | str | None = None) -> torch.Tensor:
+    """images (B,28,28,1) -> class scores (B,10) on the float path, with
+    `sigmoid` as the activation ("ref" for `torch.sigmoid`, "plan" for the
+    float PLAN, else a one-off backend around the given function)."""
+    if sigmoid is torch.sigmoid:
+        return apply(params, images, backend="ref", device=device)
+    if sigmoid is fxp.sigmoid_plan_f32:
+        return apply(params, images, backend="plan", device=device)
+    return apply(params, images, backend=B.Backend(name="custom", sigmoid_fn=sigmoid),
+                 device=device)
+
+
+def forward_plan(params: dict, images, *,
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    return apply(params, images, backend="plan", device=device)
+
+
+def forward_int8(qparams: dict, images, *,
+                 device: torch.device | str | None = None) -> torch.Tensor:
+    """int8 weights (dequant-on-use for the convs; the dense layer an int8
+    MAC through the `quant_matmul` kernel)."""
+    return apply(qparams, images, backend="int8", device=device)
 
 
 def forward_fixed(qparams: dict, images, cfg: fxp.FixedPointConfig = fxp.Q16_16, *,
@@ -108,6 +139,14 @@ def quantize_params_fixed(params: dict, cfg: fxp.FixedPointConfig = fxp.Q16_16, 
         B.tree_map(lambda leaf: as_device_tensor(leaf, device), params))
 
 
+def quantize_params_int8(params: dict, cfg: ptq.QuantConfig = ptq.QuantConfig(), *,
+                         device: torch.device | str | None = None) -> dict:
+    """Float weights -> int8 QuantTensors (per-channel scales); biases stay
+    float."""
+    return ptq.quantize_tree(
+        B.tree_map(lambda leaf: as_device_tensor(leaf, device), params), cfg)
+
+
 def predict(scores) -> torch.Tensor:
     """The paper's Max Finder: the index of the largest score, the FIRST one
     on a tie (as `jnp.argmax`).  PLAN saturates to `one` for |x| >= 5, so
@@ -118,3 +157,15 @@ def predict(scores) -> torch.Tensor:
     top = scores.max(dim=-1, keepdim=True).values
     idx = torch.arange(n, device=scores.device).expand_as(scores)
     return torch.where(scores == top, idx, n).min(dim=-1).values
+
+
+def accuracy(apply_fn, params, images, labels, batch: int = 256) -> float:
+    """Share of `images` whose Max Finder output equals `labels`, scored in
+    batches of `batch` by `apply_fn(params, images_batch)`."""
+    hits, n = 0, 0
+    for s in range(0, len(images), batch):
+        scores = apply_fn(params, images[s:s + batch])
+        want = torch.as_tensor(labels[s:s + batch]).cpu()
+        hits += int((predict(scores).cpu() == want).sum())
+        n += int(want.shape[0])
+    return hits / max(n, 1)

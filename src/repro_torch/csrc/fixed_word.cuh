@@ -22,10 +22,7 @@
 
 #include <cstdint>
 
-// The text of a launcher's return code, for the Python wrapper's error.
-extern "C" const char* fixed_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+#include "launch_error.cuh"
 
 // One Qm.n format and the PLAN sigmoid's words in it.  Built on the host by
 // repro_torch/kernels/_build.py (`fixed_cfg`); the field order is part of

@@ -13,7 +13,8 @@ sources, so an edited kernel is rebuilt and an unchanged one is loaded as
 it is.  `-Xptxas -v` (registers, shared memory, spills) goes to
 `<name>-<hash>.log` beside each library; `build_report()` returns it.
 No `--use_fast_math`: the saturation heuristic's float ops must round as
-the reference's do.
+the reference's do, and the float kernels' `expf`, division and
+denormals must be IEEE's, as their plain versions' are.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from repro_torch.core import fixed_point as fxp
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fixed_conv", "fixed_dense", "frame_trunk")   # csrc/<name>.cu
+SOURCES = ("fixed_conv", "fixed_dense", "frame_trunk", "float_kernels",
+           "quant_matmul")                                 # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,6 +71,14 @@ SIGNATURES = {
     "frame_trunk": {
         "frame_trunk_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                FixedCfg, _P],
+    },
+    "float_kernels": {
+        "conv2d_launch": [_I, _P, _P, _P, _P] + [_I] * 11 + [_P],
+        "maxpool2d_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sigmoid_pla_launch": [_I, _P, _P, _LL, _P],
+    },
+    "quant_matmul": {
+        "quant_matmul_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 
@@ -128,8 +138,8 @@ def build_all() -> dict[str, ctypes.CDLL]:
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            lib.fixed_error_string.argtypes = [ctypes.c_int]
-            lib.fixed_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
             log = so.with_suffix(".log")
             _logs[name] = log.read_text() if log.exists() else ""
@@ -152,5 +162,5 @@ def build_report() -> dict[str, str]:
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error (the launch never ran)."""
     if rc != 0:
-        msg = lib.fixed_error_string(rc).decode(errors="replace")
+        msg = lib.kernel_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc} ({msg})")

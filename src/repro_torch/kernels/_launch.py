@@ -30,10 +30,17 @@ def reset_launches() -> None:
 def require_words(what: str, t: torch.Tensor, *, ndim: int | None = None,
                   numel: int | None = None) -> None:
     """Raise unless `t` is a contiguous int32 tensor of the given rank/size."""
+    require_tensor(what, t, (torch.int32,), ndim=ndim, numel=numel)
+
+
+def require_tensor(what: str, t: torch.Tensor, dtypes: tuple[torch.dtype, ...], *,
+                   ndim: int | None = None, numel: int | None = None) -> None:
+    """Raise unless `t` is a contiguous tensor of one of `dtypes` and of the
+    given rank/size."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: expected {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if numel is not None and t.numel() != numel:

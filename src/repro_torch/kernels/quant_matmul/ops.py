@@ -1,12 +1,18 @@
-"""Fixed-point (Qm.n) dense layer: the CUDA kernel and its plain version.
+"""The two dense-layer MACs: CUDA kernels and their plain versions.
 
-Port of `repro.kernels.quant_matmul.fixed_dense` (`ops.py`) and
-`fixed_matmul_pallas` (`kernel.py`).  `fixed_dense` checks its tensors,
-sends CPU tensors to `fixed_dense_plain` and launches the kernel of
-`csrc/fixed_dense.cu` for CUDA tensors.  The reference pads the batch to
-its Pallas block and budgets VMEM; the kernel here is one thread per
-output word, so neither carries over.  The int8 `quant_matmul` is not
-ported yet.
+Port of `repro.kernels.quant_matmul` (`ops.py` wrappers, `kernel.py`,
+`ref.py`).  Each wrapper checks its tensors, sends CPU tensors to its
+plain version and launches its kernel for CUDA tensors:
+
+  fixed_dense   the Qm.n dense layer (`fixed_matmul_pallas`), kernel in
+                `csrc/fixed_dense.cu`; the reference pads the batch to its
+                Pallas block and budgets VMEM, but the kernel here is one
+                thread per output word, so neither carries over
+  quant_matmul  int8 x int8 -> exact int32 sum -> float32 dequant
+                (`quant_matmul_pallas`), kernel in `csrc/quant_matmul.cu`;
+                the reference pads every extent to its (bm, bn, bk) blocks,
+                a TPU tiling: the kernel here stages zeros past the edges
+                itself, so no padded copy is made
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import torch
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_words, stream_of
+from repro_torch.kernels._launch import (LAUNCHES, on_cuda, require_tensor,
+                                         require_words, stream_of)
 
 
 def fixed_dense_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -48,4 +55,53 @@ def fixed_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                                 stream)
     _build.check(lib, rc, "fixed_dense")
     LAUNCHES["fixed_dense"] += 1
+    return out
+
+
+def _scales(s, n: int, device: torch.device) -> torch.Tensor:
+    """A scalar or (n,) scale -> a contiguous (n,) float32 tensor on `device`."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device).reshape(-1)
+    if s.numel() not in (1, n):
+        raise ValueError(f"quant_matmul: expected a scalar or {n} scales, got {s.numel()}")
+    return s.expand(n).contiguous()
+
+
+def quant_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, sx=1.0,
+                       sw=1.0) -> torch.Tensor:
+    """(xq @ wq) * sx[:, None] * sw[None, :] in PyTorch ops.  The int8
+    products are summed in float64, where every partial sum is an integer
+    below 2**53 and so exact: the same int32 a wraparound-free int32
+    accumulation gives (|sum| < 2**31 for K < 2**17).  Float64 because
+    PyTorch has no integer matmul on CUDA."""
+    M, N = xq.shape[0], wq.shape[1]
+    acc = (xq.to(torch.float64) @ wq.to(torch.float64)).to(torch.int32)
+    return (acc.to(torch.float32) * _scales(sx, M, xq.device)[:, None]
+            * _scales(sw, N, xq.device)[None, :])
+
+
+def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, sx=1.0, sw=1.0) -> torch.Tensor:
+    """Dequantized float32 (xq @ wq) * sx[:, None] * sw[None, :]: xq (M,K)
+    int8, wq (K,N) int8, sx a scalar or (M,), sw a scalar or (N,) -> (M,N)."""
+    require_tensor("quant_matmul xq", xq, (torch.int8,), ndim=2)
+    require_tensor("quant_matmul wq", wq, (torch.int8,), ndim=2)
+    M, K = xq.shape
+    if wq.shape[0] != K:
+        raise ValueError(f"quant_matmul: xq {tuple(xq.shape)} @ wq {tuple(wq.shape)}")
+    if K >= 2 ** 17:
+        raise ValueError(f"quant_matmul: K={K} could overflow the int32 sum")
+    N = wq.shape[1]
+    if not on_cuda(xq, wq):
+        return quant_matmul_plain(xq, wq, sx, sw)
+    sx, sw = _scales(sx, M, xq.device), _scales(sw, N, xq.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    if out.numel() == 0:
+        return out
+    if -(-M // 64) >= 2 ** 16:
+        raise ValueError(f"quant_matmul: M={M} exceeds the kernel's grid")
+    lib = _build.library("quant_matmul")
+    dev, stream = stream_of(xq)
+    rc = lib.quant_matmul_launch(dev, xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
+                                 sw.data_ptr(), out.data_ptr(), M, K, N, stream)
+    _build.check(lib, rc, "quant_matmul")
+    LAUNCHES["quant_matmul"] += 1
     return out

@@ -23,7 +23,9 @@ contributes exactly 0, which is what the patch's padding contributes), and
 maps that mix sources are decomposed into per-source masked convs
 recombined with `Backend.accumulate` (wraparound fixed-point addition is
 associative mod 2**bits).  Window scores are therefore WORD-EXACT against
-`Tiler.extract` + `score` on the fixed backends, border windows included.
+`Tiler.extract` + `score` on the fixed backends, border windows included;
+on the float and int8 backends, whose maps are NHWC (1,h,w,1) floats, the
+decomposition reorders float sums, so they agree within rounding.
 
 Edge/geometry contract (validated loudly):
 
@@ -39,7 +41,10 @@ version on `fixed`) where the frame's geometry allows it and the composed
 cascade elsewhere; True requires it and raises where there is none; False
 forces the composed cascade: 20 conv, 2 pool and 11 sigmoid launches per
 frame on `fixed_cuda`, against one `frame_trunk` launch.  All three give
-the same words.  The head is one dense and one sigmoid launch.
+the same words.  The head is one dense and one sigmoid launch.  The float
+and int8 backends have no `frame_trunk` and always run the composed
+cascade: per frame 20 `conv2d`, 2 `maxpool2d` and 12 `sigmoid_pla` launches
+on `cuda_plan` (no `sigmoid_pla` on `cuda`), 1 `quant_matmul` on `int8`.
 
 The reference jits one program per geometry; here the sweep is a plain
 function on tensors, and only the window-gather indices are cached, per
@@ -139,7 +144,8 @@ def _sweep_stage(be: B.Backend, quad, w, b):
 def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
                 megakernel: bool | None = None):
     """Both conv stages of the sweep over one (1,H,W,1) float frame batch:
-    the level-2 role-map quad (I, B, R, C), each (1, H/4, W/4) words.
+    the level-2 role-map quad (I, B, R, C), each (1, H/4, W/4) words or
+    (1, H/4, W/4, 1) floats.
 
     `megakernel`: None tries the backend's `frame_trunk` and runs the
     composed cascade where it returns None; True requires it (raising where
@@ -191,12 +197,20 @@ def _window_gather(patch: int, positions: tuple[tuple[int, int], ...],
     return idx.reshape(len(positions), k * k).to(device)
 
 
+def _squeeze_map(x: torch.Tensor) -> torch.Tensor:
+    """(1,H,W) fixed words or (1,H,W,1) float NHWC -> (H,W)."""
+    return x[0, ..., 0] if x.ndim == 4 else x[0]
+
+
 def _head_scores(be: B.Backend, p: dict, quad, gather: torch.Tensor) -> torch.Tensor:
     """The sweep's dense-head half: role-map quad + gather indices ->
-    (Nw, 10) backend-native scores (one gather, one dense launch, one
-    sigmoid launch).  Kept apart from the trunk so that a server that
-    splits the sweep into trunk and head runs the same words."""
-    stacked = torch.cat([m.reshape(1, m.shape[-2], m.shape[-1]) for m in quad])
+    (Nw, 10) backend-native scores (one gather, then the dense head: on
+    `fixed_cuda` one dense and one sigmoid launch).  Each map is squeezed
+    to (H/4, W/4) first, words or NHWC floats alike, so the flat indices
+    of `_window_gather` address the same features in both layouts.  Kept
+    apart from the trunk so that a server that splits the sweep into trunk
+    and head runs the same words."""
+    stacked = torch.stack([_squeeze_map(m) for m in quad])   # (4, h, w)
     feats = stacked.reshape(-1)[gather]                       # (Nw, k*k)
     return smallnet.dense_head(p, feats, backend=be)
 
@@ -218,9 +232,10 @@ def sweep_feature_maps(params: Any, frame, *,
                        megakernel: bool | None = None,
                        device: torch.device | str | None = None) -> dict:
     """The level-2 role-map quad for one (H,W[,1]) frame: a dict of
-    (H/4, W/4) int32 numpy maps {"interior", "last_row", "last_col",
-    "corner"}.  This is the sweep trunk without the dense head — what the
-    golden vectors freeze.  The frame goes to `device` (default "cuda")
+    (H/4, W/4) numpy maps {"interior", "last_row", "last_col", "corner"}
+    in the backend's native domain (int32 words on the fixed backends,
+    float32 on the others).  This is the sweep trunk without the dense
+    head — what the golden vectors freeze.  The frame goes to `device` (default "cuda")
     unless it is a tensor already; `megakernel` as in `_trunk_quad`."""
     be = B.get_backend(backend)
     _check_saturation(be)
@@ -230,7 +245,7 @@ def sweep_feature_maps(params: Any, frame, *,
     with torch.inference_mode():
         quad = _trunk_quad(be, be.prepare_params(params, f.device), f[None],
                            megakernel)
-    return {n: m[0].cpu().numpy() for n, m in zip(MAPS, quad)}
+    return {n: _squeeze_map(m).cpu().numpy() for n, m in zip(MAPS, quad)}
 
 
 @dataclasses.dataclass(frozen=True)

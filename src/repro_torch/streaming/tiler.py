@@ -15,7 +15,8 @@ tiler on the fixed backends.
 Determinism contract: integer score words become float32 confidences as
 the reference's `from_fixed` makes them (`words.float() / scale`, a float32
 division), so identical words give identical floats give identical
-detections, on any device and in either package.
+detections, on any device and in either package.  Float scores (the float
+and int8 backends) are confidences already and pass through.
 """
 from __future__ import annotations
 

@@ -20,6 +20,9 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
+       "repro_torch.kernels.maxpool2d.ops", "repro_torch.kernels.sigmoid_pla.ops"]
+assert all(m in names for m in new), sorted(set(new) - set(names))
 print(len(names), bad)
 """
 
@@ -31,7 +34,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15, out.stdout             # every module was imported
+    assert int(n) >= 35, out.stdout             # every module was imported
     assert bad == "[]", f"modules loaded: {bad}"
 
 

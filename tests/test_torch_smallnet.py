@@ -149,9 +149,10 @@ def test_params_from_jax_accepts_torch_tensors():
 
 def test_param_count_and_registry():
     assert tsn.param_count(params_from_jax(numpy_params(), "cpu")) == 510
-    assert TB.list_backends() == ["fixed", "fixed_cuda"]
+    assert TB.list_backends() == ["cuda", "cuda_plan", "fixed", "fixed_cuda", "int8",
+                                  "plan", "ref"]
     with pytest.raises(KeyError):
-        TB.get_backend("pallas")
+        TB.get_backend("pallas")          # the port names it "cuda"
 
 
 def test_default_device_is_cuda():
