@@ -10,6 +10,9 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             torch.cuda.get_device_name
   build     compile the kernels of src/repro_torch/csrc with nvcc (sm_90a),
             timed, with ptxas' register counts
+  ptxas     for the two redesigned sources (quant_matmul.cu, frame_trunk.cu):
+            each kernel's registers, spills and static shared memory from
+            `-Xptxas -v`, and its SASS instruction counts (cuobjdump)
   golden    each kernel against tests/golden/fixed_golden.json, word for
             word, in all five STANDARD_CONFIGS; then, with the committed
             params fixture tests/golden/seeded_params.json, the frame_trunk
@@ -23,18 +26,24 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             include max_int, min_int and INT32_MIN; then its median time
             (CUDA events), its bound, the plain version's time and, where one
             PyTorch call computes the same function, that call's time.
-            frame_trunk runs in the three wraparound configs (a saturating
-            one must raise) at 112x112 (chosen and forced tiles), 104x132
-            (H/4 even, W/4 odd), 512x512 and 1080x1920.  Then the float and
+            frame_trunk runs in the three wraparound configs and the generic
+            kernel's Q12.4 (a saturating one must raise) at 112x112 (chosen
+            and forced tiles), 104x132 (H/4 even, W/4 odd), 512x512 and
+            1080x1920, with tiles past 48 KB of shared memory; times at the
+            three frames in Q16.16, at 1080x1920 in each config and with
+            forced tiles; fixed_dense also at the camera frame's window head
+            (31,654 windows).  Then the float and
             int8 kernels: sigmoid_pla (torch.equal, shapes up to 2^24
             words, the breakpoints, +-0.0 and their float neighbours),
             maxpool2d (torch.equal in float32 and bfloat16, odd extents,
             NaN), conv2d (allclose 2e-5: the reference's six test shapes,
             each activation at the engine's shapes, a 512x512 stride-2
-            frame) and quant_matmul (an exact int32 sum at unit scales;
-            rtol 1e-6 from (64,49,10) up to (4096,4096,4096)); library
-            calls F.conv2d (TF32 off), F.max_pool2d and torch._int_mm where
-            its shape rules allow
+            frame) and quant_matmul (an exact int32 sum at unit scales on
+            both routes; rtol 1e-6 from (64,49,10) up to (4096,4096,4096),
+            each shape's route named); library calls F.conv2d (TF32 off),
+            F.max_pool2d and torch._int_mm where its shape rules allow (at
+            4096^3 also with a column-major wq, and the transpose of wq
+            alone)
   serve     VisionEngine(backend="fixed_cuda", batch_size=64, device="cuda"),
             threaded, over 1024 synth_mnist images in Q16.16 and in Q8.8:
             every score word equals the plain `fixed` backend's on the CPU,
@@ -236,10 +245,17 @@ def conv_work(B, H, W, pool, stride=1):
     return 4 * (B * H * W + B * Ho * Wo + 5), 8 * words        # 4 taps x (mul + add)
 
 
+def camera_windows() -> int:
+    """Windows of one camera frame at the sweep's stride (the window head's
+    batch on the 1080x1920 sweep)."""
+    from repro_torch.streaming import FcnSweep
+    return len(FcnSweep(stride=SWEEP_STRIDE).positions(CAMERA))
+
+
 def kernel_cases():
     """name -> list of (label, make(rng, cfg) -> args, kwargs, work(bytes, ops),
     timed-at-engine-shape?)."""
-    E, L = ENGINE_BATCH, LARGE_BATCH
+    E, L, C = ENGINE_BATCH, LARGE_BATCH, camera_windows()
 
     def conv(B, H, W, *, act="plan", pool=True, stride=1):
         def make(rng, cfg):
@@ -294,6 +310,7 @@ def kernel_cases():
         "fixed_dense": [
             ("engine (64,49)@(49,10)", *dense(E, 49, 10), "engine"),
             ("large (16384,49)@(49,10)", *dense(L, 49, 10), "large"),
+            (f"camera window head ({C},49)@(49,10)", *dense(C, 49, 10), "large"),
             ("odd (3,7)@(7,5)", *dense(3, 7, 5), None),
         ],
     }
@@ -502,16 +519,30 @@ def phase_frame_trunk_kernel(card: str) -> dict:
 
     rng = np.random.default_rng(2026)
     max_err = 0
-    cases = [((112, 112), (None, (4, 4), (8, 16), (28, 56))),
+    # tiles past 48 KB of shared memory: (112,112), (56,112), (128,128),
+    # (108,160); (108,48) is the chooser's pick before the redesign
+    cases = [((112, 112), (None, (4, 4), (8, 16), (28, 56), (56, 112), (112, 112))),
              ((104, 132), (None, (8, 12))),
-             ((512, 512), (None,)),
-             (CAMERA, (None,))]
+             ((512, 512), (None, (128, 128))),
+             (CAMERA, (None, (108, 48), (108, 160)))]
     timed = {(112, 112): "sweep frame 112x112", (512, 512): "frame 512x512",
              CAMERA: "camera frame 1080x1920"}
+    # the three wraparound STANDARD_CONFIGS take kernels specialised on
+    # their format; Q12.4 takes the generic one
+    configs = {name: fxp.STANDARD_CONFIGS[name] for name in ("q16_16", "q16_16_trunc", "q8_8")}
+    configs["q12_4 (generic)"] = fxp.FixedPointConfig(16, 4)
     reset_launches()
     n_checked, shapes = 0, []
-    for cname in ("q16_16", "q16_16_trunc", "q8_8"):
-        cfg = fxp.STANDARD_CONFIGS[cname]
+
+    def row(case, cname, H, W, tile, ms, plain_ms):
+        nbytes, ops = frame_trunk_work(H, W)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        return {"case": case, "cfg": cname, "tile": list(tile),
+                "smem_bytes": FT.frame_trunk_smem_bytes(*tile), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "bytes": nbytes, "ops": ops}
+
+    for cname, cfg in configs.items():
         for (H, W), tiles in cases:
             args = [torch.from_numpy(random_words(rng, shape, cfg)).cuda()
                     for shape in ((H, W), (4,), (1,), (4,), (1,))]
@@ -525,16 +556,19 @@ def phase_frame_trunk_kernel(card: str) -> dict:
                        f"{cname}: kernel differs from plain (max |err| {err})")
                 max_err = max(max_err, err)
                 n_checked += 1
-            if cname != "q16_16" or (H, W) not in timed:
+            if (H, W) not in timed or (cname != "q16_16" and (H, W) != CAMERA):
                 continue
-            nbytes, ops = frame_trunk_work(H, W)
-            b_ms, b_by = bound_ms(nbytes, ops)
-            shapes.append({"case": timed[(H, W)], "tile": list(FT.choose_tile(H, W)),
-                           "ms": device_ms(lambda: FT.frame_trunk_quad(*args, cfg=cfg), 50),
-                           "plain_ms": device_ms(
-                               lambda: FT.frame_trunk_quad_plain(*args, cfg=cfg), 5),
-                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                           "bytes": nbytes, "ops": ops})
+            chosen = FT.choose_tile(H, W)
+            shapes.append(row(
+                timed[(H, W)], cname, H, W, chosen,
+                device_ms(lambda: FT.frame_trunk_quad(*args, cfg=cfg), 50),
+                device_ms(lambda: FT.frame_trunk_quad_plain(*args, cfg=cfg), 5)))
+            if cname == "q16_16" and (H, W) == CAMERA:     # the chooser's alternatives
+                for tile in ((108, 48), (72, 120), (108, 160)):
+                    shapes.append(row(
+                        f"{timed[(H, W)]}, forced tile", cname, H, W, tile,
+                        device_ms(lambda: FT.frame_trunk_quad(*args, cfg=cfg, tile=tile), 50),
+                        None))
     x = torch.zeros((112, 112), dtype=torch.int32, device="cuda")
     w, b = torch.ones(4, dtype=torch.int32, device="cuda"), torch.zeros(1, dtype=torch.int32,
                                                                         device="cuda")
@@ -546,11 +580,11 @@ def phase_frame_trunk_kernel(card: str) -> dict:
         except exc:
             continue
         raise SmokeError(f"frame_trunk {bad}: expected {exc.__name__}")
-    row = dict(shapes[0])
+    first = shapes[0]                                      # 112x112, Q16.16
     table = {"name": "frame_trunk", "route": "cuda", "source": KERNELS["frame_trunk"][0],
              "replaces": KERNELS["frame_trunk"][1], "launches": 0, "max_abs_err": max_err,
-             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-             "bound_by": row["bound_by"], "library_ms": None}
+             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+             "bound_by": first["bound_by"], "library_ms": None}
     emit("kernel", name="frame_trunk", checked=n_checked, max_abs_err=max_err,
          launches_in_this_phase=launches().get("frame_trunk", 0), card=card,
          sweep_frame=table, shapes=shapes,
@@ -568,8 +602,9 @@ def conv_float_work(B, H, W, cin, kh, kw, cout, Ho, Wo, act):
 
 
 def int_mm_allowed(M, K, N) -> bool:
-    """torch._int_mm's shape rules on CUDA: M > 16, K and N multiples of 8."""
-    return M > 16 and K % 8 == 0 and N % 8 == 0
+    """torch._int_mm's shape rules on CUDA: M > 16, K and N multiples of 8,
+    and K > 16 (cuBLASLt refuses K = 16 on the H100)."""
+    return M > 16 and K > 16 and K % 8 == 0 and N % 8 == 0
 
 
 def phase_float_kernels(card: str) -> dict:
@@ -585,7 +620,9 @@ def phase_float_kernels(card: str) -> dict:
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.kernels.conv2d import conv2d, conv2d_plain
     from repro_torch.kernels.maxpool2d import maxpool2d, maxpool2d_plain
-    from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
+    from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_plain,
+                                                  quant_matmul_route)
+    from repro_torch.kernels.quant_matmul.ops import transpose_wq
     from repro_torch.kernels.sigmoid_pla import sigmoid_pla, sigmoid_pla_plain
 
     expect(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -752,23 +789,29 @@ def phase_float_kernels(card: str) -> dict:
     def i8(shape):
         return torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
 
-    xq, wq = i8((32, 1024)), i8((1024, 16))
-    xq[0], wq[:, 0] = -128, -128                     # the largest products
-    got = quant_matmul(xq, wq, 1.0, 1.0)
-    exact = (xq.cpu().to(torch.int64) @ wq.cpu().to(torch.int64)).to(torch.float32)
-    expect(torch.equal(got.cpu(), exact), "quant_matmul: the int32 sum is not exact")
-    shapes, n_checked, max_rel, max_abs = [], 1, 0.0, 0.0
+    for M, K, N in ((32, 1024, 16), (32, 49, 16)):   # both routes: the int32 sum is exact
+        xq, wq = i8((M, K)), i8((K, N))
+        xq[0], wq[:, 0] = -128, -128                 # the largest products
+        got = quant_matmul(xq, wq, 1.0, 1.0)
+        exact = (xq.cpu().to(torch.int64) @ wq.cpu().to(torch.int64)).to(torch.float32)
+        expect(torch.equal(got.cpu(), exact),
+               f"quant_matmul ({M},{K},{N}) {quant_matmul_route(xq, wq)}: the int32 sum "
+               "is not exact")
+    shapes, n_checked, max_rel, max_abs = [], 2, 0.0, 0.0
     not_allowed = []
     for M, K, N in ((E, 49, 10), (100, 300, 70), (513, 257, 129), (16384, 49, 10),
-                    (4096, 4096, 4096)):
+                    (129, 65, 97), (96, 4096, 130), (130, 16, 200), (200, 4160, 136),
+                    (512, 512, 512), (4096, 4096, 4096)):
         xq, wq = i8((M, K)), i8((K, N))
         sx = torch.rand(M, device=dev) * 0.1 + 1e-3
         sw = torch.rand(N, device=dev) * 0.1 + 1e-3
+        route = quant_matmul_route(xq, wq)
         got, want = quant_matmul(xq, wq, sx, sw), quant_matmul_plain(xq, wq, sx, sw)
         torch.cuda.synchronize()
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
         expect(torch.allclose(got, want, rtol=1e-6, atol=0),
-               f"quant_matmul ({M},{K},{N}): kernel differs from plain (max rel {rel})")
+               f"quant_matmul ({M},{K},{N}) {route}: kernel differs from plain "
+               f"(max rel {rel})")
         max_rel = max(max_rel, rel)
         max_abs = max(max_abs, float((got - want).abs().max()))
         n_checked += 1
@@ -780,19 +823,28 @@ def phase_float_kernels(card: str) -> dict:
             lib = lambda xq=xq, wq=wq: torch._int_mm(xq, wq)       # noqa: E731
         else:
             not_allowed.append([M, K, N])
-        if (M, K, N) in ((E, 49, 10), (16384, 49, 10), (4096, 4096, 4096)):
-            reps = 200 if M == E else (50 if K == 49 else 5)
-            shapes.append(timed(
+        if (M, K, N) in ((E, 49, 10), (16384, 49, 10), (512, 512, 512), (4096, 4096, 4096)):
+            reps = 200 if M == E else (50 if K == 49 else (20 if M == 512 else 5))
+            r = timed(
                 f"({M},{K})@({K},{N})", lambda xq=xq, wq=wq, sx=sx, sw=sw:
                 quant_matmul(xq, wq, sx, sw),
                 lambda xq=xq, wq=wq, sx=sx, sw=sw: quant_matmul_plain(xq, wq, sx, sw), lib,
                 (M * K + K * N + 4 * (M + N) + 4 * M * N, 2 * M * K * N), INT8_OPS_PER_S,
-                reps, "engine" if M == E else "large"))
+                reps, "engine" if M == E else "large")
+            r["route"] = route
+            if (M, K, N) == (4096, 4096, 4096):
+                # torch._int_mm with a column-major wq (cuBLAS's int8 layout),
+                # and the wgmma route's transpose of wq alone (inside `ms`)
+                wcm = wq.t().contiguous().t()
+                r["library_colmajor_ms"] = device_ms(lambda: torch._int_mm(xq, wcm), reps)
+                r["transpose_ms"] = device_ms(lambda: transpose_wq(wq), reps)
+            shapes.append(r)
     emit("kernel", name="quant_matmul", max_rel_err=max_rel)
     table["quant_matmul"] = row(
         "quant_matmul", shapes, max_abs, n_checked,
-        "torch._int_mm (the int32 product alone) where its shape rules allow "
-        f"(M > 16, K and N multiples of 8); not at {not_allowed}")
+        "torch._int_mm (the int32 product alone, row-major wq as the call gets it) "
+        "where its shape rules allow (M > 16, K > 16, K and N multiples of 8); not at "
+        f"{not_allowed}")
     return table
 
 
@@ -1242,6 +1294,51 @@ def phase_sweep_profile(card):
          card=card)
 
 
+def ptxas_kernels(log: str) -> list[dict]:
+    """Per kernel of one source, what `nvcc -Xptxas -v` printed: registers,
+    spill stores and loads (bytes), static shared memory (bytes)."""
+    import re
+    kernels = []
+    for block in log.split("Compiling entry function")[1:]:
+        mangled = block.split("'")[1]
+        # the kernel's source name follows its length in the mangled name
+        name, rest = next((mangled[m.end():m.end() + int(m.group())],
+                           mangled[m.end() + int(m.group()):])
+                          for m in re.finditer(r"\d+", mangled)
+                          if mangled[m.end():m.end() + int(m.group())].endswith("_kernel"))
+        targs = re.match(r"I((?:L[^E]*E)+)E", rest)
+        args = [a.replace("n", "-") for a in re.findall(r"Li(n?\d+)E", targs.group(1))] \
+            if targs else []
+        num = lambda pat: int(re.search(pat, block).group(1)) if re.search(pat, block) else 0
+        kernels.append({"kernel": name + (f"<{','.join(args)}>" if args else ""),
+                        "registers": num(r"Used (\d+) registers"),
+                        "spill_stores": num(r"(\d+) bytes spill stores"),
+                        "spill_loads": num(r"(\d+) bytes spill loads"),
+                        "static_smem": num(r"(\d+) bytes smem")})
+    return kernels
+
+
+def sass_counts(so: pathlib.Path) -> dict | str:
+    """Per kernel of a built library, how often `cuobjdump -sass` shows the
+    instructions the redesign is about: wide and high multiplies, funnel
+    shifts, local-memory traffic (a spill) and wgmma."""
+    import os
+    import re
+    tool = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not tool.exists():
+        return "not measured: no cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    ops = ("IMAD.WIDE", "IMAD.HI", "SHF.R", "LEA.HI", "LDL", "STL", "HGMMA", "UTMALDG")
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = ptxas_kernels("Compiling entry function '" + block.split()[0] + "'")[0]["kernel"]
+        code = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)
+        out[name] = {"instructions": len(code),
+                     **{op: sum(c.startswith(op) for c in code) for op in ops}}
+    return out
+
+
 def params_on(params, device):
     from repro_torch.core.convert import params_from_jax
     return params_from_jax(params, device)
@@ -1280,10 +1377,14 @@ def run(card: str, kind: str, count: int) -> None:
 
     from repro_torch.kernels import _build
     _build.build_all()
+    report = _build.build_report()
     regs = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
-            for k, v in _build.build_report().items()}
+            for k, v in report.items()}
     emit("build", seconds=_build.build_seconds, sources=list(_build.SOURCES),
          ptxas=regs)
+    for name in ("quant_matmul", "frame_trunk"):      # the two redesigned sources
+        emit("ptxas", source=f"csrc/{name}.cu", kernels=ptxas_kernels(report[name]),
+             sass=sass_counts(_build.library_path(name)))
 
     phase_golden()
     phase_sweep_golden()

@@ -6,44 +6,64 @@
 // in one launch.
 //
 // Design: one thread block per (th, tw) output tile (the tile comes from
-// repro_torch/kernels/frame_trunk/ops.py:choose_tile).
-//   1. The block stages its (th+3) x (tw+3) input words in shared memory:
-//      the tile plus a 3-pixel bottom/right halo.  Words past the frame's
-//      edge read as zero, so no padded copy of the frame is made.
+// repro_torch/kernels/frame_trunk/ops.py:choose_tile); the shared memory is
+// dynamic and may exceed 48 KB.  The block has the fewest threads, in
+// whole warps, that cover the level-1 positions in as few passes of at
+// most 384 as they need (384 rather than 512: smaller blocks let more of
+// them share an SM, each in a different phase).
+//   1. The block stages its (th+3) x (tw+4) input words in shared memory:
+//      the tile plus a 3-pixel bottom/right halo, a row padded to whole
+//      16-byte vectors (W % 4 == 0, so a vector is wholly inside the frame
+//      or wholly past it).  Words past the frame's edge read as zero, so no
+//      padded copy of the frame is made.
 //   2. Level 0 + pool: one thread per level-1 position (th/2+1 x tw/2+1,
-//      one pooled halo row and column kept).  It computes the nine masked
-//      conv+PLAN words its 2x2 pool window needs (s_ii at all four
-//      positions, s_li on the odd row, s_il on the odd column, s_ll at the
-//      odd corner) in registers and writes the I/B/R/C words to shared
-//      memory.  A position at global row >= H/2 or column >= W/2 lies over
-//      the frame's padding: it is level 1's SAME zero padding, so it is
-//      stored as 0.  A halo position inside the frame holds the
-//      neighbouring tile's real value.
-//   3. Level 1 + pool: one thread per (role, level-2 position).  Each role
-//      word pools four level-1 role words, each a masked partial conv (or
-//      a wraparound fixed_add of several, in _sweep_stage's association
-//      order) followed by PLAN.
+//      one pooled halo row and column kept), in a strided loop.  It forms
+//      the 16 (word, tap) products of its 3x3 input window once and, from
+//      them, the nine masked conv words its 2x2 pool window needs (s_ii at
+//      all four positions, s_li on the odd row, s_il on the odd column,
+//      s_ll at the odd corner): the TOP, LEFT and 00 tap sums are partial
+//      sums of the ALL sums, so 16 products serve all nine.  PLAN, then the
+//      I/B/R/C words go to shared memory.  A position at global row >= H/2
+//      or column >= W/2 lies over the frame's padding: it is level 1's SAME
+//      zero padding, so it is stored as 0.  A halo position inside the
+//      frame holds the neighbouring tile's real value.
+//   3. Level 1 + pool: one thread per level-2 position computes all four
+//      role words.  Its 3x3 windows of the quad hold 36 distinct
+//      (map, position, tap) products (16 over I, 8 over B, 8 over R, 4 over
+//      C); each is formed once and every partial conv that needs it adds it
+//      (the role-by-role form computed 49).
 // Pool windows do not overlap, so no conv word is computed twice within a
 // tile; only the halo row/column is recomputed by the neighbouring block.
 //
-// Arithmetic: every partial conv is a per-tap MAC summed in uint32_t (wraps
-// mod 2^32), then ONE fixed_add of the bias or of a zero word: exactly the
-// accumulator of kernels/fixed_conv and of the composed sweep, so every
-// partial conv wraps to total_bits where they do.  The word functions come
-// from fixed_word.cuh, shared with the other fixed-point kernels.
-// Saturating configs are rejected by the Python wrapper.
+// Why sharing products and partial sums keeps every word: the trunk takes
+// only wraparound configs (the wrapper rejects saturating ones).  There a
+// product word, fixed_add and the wrap to total_bits are all congruent mod
+// 2^total_bits to the plain int32 values, and every conv word ends in a
+// wrap.  So a masked conv, or the fixed_add recombination of several (in
+// _sweep_stage's order), equals wrap(sum of its products + bias), with the
+// products summed mod 2^32 in any order and grouping.
+//
+// Arithmetic: the three wraparound STANDARD_CONFIGS (Q16.16, Q16.16
+// truncating, Q8.8) have kernels specialised at compile time on
+// (frac_bits, total_bits, round_nearest).  There a product is one 64-bit
+// multiply-add (mad.wide.s32), a*b + 2^(f-1) when rounding (floor((p +
+// 2^(f-1)) / 2^f) is p >> f plus bit f-1 of p), and one funnel shift for
+// the low 32 bits of the shifted product; the per-product wrap is dropped (only the sum's
+// wrap counts, as above), and there is no saturation branch.  PLAN's
+// rounding shifts are (x + 2^(k-1)) >> k, exact wherever that branch is
+// taken.  Any other wraparound config runs the generic kernel, with the
+// runtime FixedCfg and the word functions of fixed_word.cuh.
 //
 // Bound on an H100 SXM (3.35 TB/s; int32 on the CUDA cores 16.7 Tops/s):
 // the function reads each input word once and writes each output word
 // once, H*W*4 + 4*(H/4)(W/4)*4 bytes (5 per frame pixel; the halo's zeros
 // are made, not read).  The least integer work it needs is about 18.5
-// operations per frame pixel (only the words the pools read, each product
-// of a word and a tap once; counted in chip_smoke.py frame_trunk_work), so
-// a 1080x1920 frame is bound by bytes: 10.4 MB, 3.1 us.  This kernel
-// computes each masked conv's products on their own, and each product is
-// several instructions (a 64-bit product, shifts, the round bit), so it
-// sits well above the bound.  No tensor core applies: every product is
-// renormalized and wrapped before it is summed.
+// operations per frame pixel (counted in chip_smoke.py frame_trunk_work),
+// so a 1080x1920 frame is bound by bytes: 10.4 MB, 3.1 us.  The kernel
+// still does several instructions per counted operation (a product is two,
+// a PLAN word a dozen with its three candidate segments), so the integer
+// pipes, not the bytes, are expected to hold it back.  No tensor core
+// applies: every product is renormalized before it is summed.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,75 +73,158 @@
 namespace {
 
 constexpr int kHalo = 3;
-constexpr int kMaxThreads = 256;
-
-// tap subsets of the 2x2 kernel, one bit per row-major tap (dh, dw):
-// 1 = (0,0), 2 = (0,1), 4 = (1,0), 8 = (1,1)
-constexpr int T_ALL = 15, T_TOP = 3, T_BOT = 12, T_LEFT = 5, T_RIGHT = 10;
-constexpr int T_00 = 1, T_01 = 2, T_10 = 4, T_11 = 8;
-
-// Masked-tap conv word at (r, c) of a row-major map with row stride `ld`:
-// the kept taps' products summed mod 2^32, then fixed_add(bias).
-template <int kTaps>
-__device__ __forceinline__ int32_t conv_at(const int32_t* m, int ld, int r,
-                                           int c, const int32_t (&w)[4],
-                                           int32_t bias, const FixedCfg& cfg) {
-  const int32_t* p = m + r * ld + c;
-  uint32_t acc = 0;
-  if (kTaps & 1) acc += (uint32_t)fixed_mul(p[0], w[0], cfg);
-  if (kTaps & 2) acc += (uint32_t)fixed_mul(p[1], w[1], cfg);
-  if (kTaps & 4) acc += (uint32_t)fixed_mul(p[ld], w[2], cfg);
-  if (kTaps & 8) acc += (uint32_t)fixed_mul(p[ld + 1], w[3], cfg);
-  return fixed_add((int32_t)acc, bias, cfg);
-}
+constexpr int kMaxThreads = 384;
 
 __device__ __forceinline__ int32_t max4(int32_t a, int32_t b, int32_t c,
                                         int32_t d) {
   return max(max(a, b), max(c, d));
 }
 
-__global__ void frame_trunk_kernel(const int32_t* __restrict__ x,
-                                   const int32_t* __restrict__ w1p,
-                                   const int32_t* __restrict__ b1p,
-                                   const int32_t* __restrict__ w2p,
-                                   const int32_t* __restrict__ b2p,
-                                   int32_t* __restrict__ out, int H, int W,
-                                   int th, int tw, FixedCfg cfg) {
-  extern __shared__ int32_t smem[];
-  const int xh = th + kHalo, xw = tw + kHalo;     // staged input extent
+// x >= bound ? a : b as a select: a branch would split a warp whose words
+// fall on different sides of the bound
+__device__ __forceinline__ int32_t select_ge(int32_t x, int32_t bound, int32_t a,
+                                             int32_t b) {
+  int32_t r;
+  asm("{\n.reg .pred p;\nsetp.ge.s32 p, %1, %2;\nselp.b32 %0, %3, %4, p;\n}"
+      : "=r"(r)
+      : "r"(x), "r"(bound), "r"(a), "r"(b));
+  return r;
+}
+
+// The word arithmetic of one wraparound format: compile-time for
+// kFrac >= 0, the runtime FixedCfg (fixed_word.cuh) for kFrac < 0.
+template <int kFrac, int kTotal, int kRound>
+struct Word {
+  FixedCfg c;
+  long long half;   // 2^(frac_bits-1) when rounding, else 0 (see `make`)
+
+  // `half` is hidden from the optimiser, so that it stays in a register
+  // pair and every product is one IMAD.WIDE with it as the addend: as a
+  // constant it becomes a separate 64-bit add (IADD3 + IMAD.X)
+  __device__ __forceinline__ static Word make(const FixedCfg& cfg) {
+    long long h = 0;
+    if constexpr (kFrac > 0 && kRound) h = 1ll << (kFrac - 1);
+    asm volatile("" : "+l"(h));
+    return Word{cfg, h};
+  }
+
+  // a product word, correct mod 2^total_bits (all a conv word needs)
+  __device__ __forceinline__ uint32_t mul(int32_t a, int32_t b) const {
+    if constexpr (kFrac < 0) {
+      return (uint32_t)fixed_mul(a, b, c);
+    } else {
+      // signed: a plain `(long long)a * b + h` compiles to an unsigned wide
+      // multiply with sign corrections
+      long long p;
+      asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(p) : "r"(a), "r"(b), "l"(half));
+      return __funnelshift_r((uint32_t)p, (uint32_t)((unsigned long long)p >> 32),
+                             kFrac);
+    }
+  }
+
+  // a conv word: the tap products' sum mod 2^32 plus the bias, wrapped
+  __device__ __forceinline__ int32_t conv(uint32_t sum, int32_t bias) const {
+    if constexpr (kFrac < 0) {
+      return fixed_add((int32_t)sum, bias, c);
+    } else {
+      const int32_t s = (int32_t)(sum + (uint32_t)bias);
+      if constexpr (kTotal >= 32) return s;
+      else return ((int32_t)((uint32_t)s << (32 - kTotal))) >> (32 - kTotal);
+    }
+  }
+
+  template <int k>
+  __device__ __forceinline__ static int32_t shr(int32_t x) {
+    if constexpr (kRound) return (int32_t)((uint32_t)x + (1u << (k - 1))) >> k;
+    else return x >> k;
+  }
+
+  __device__ __forceinline__ int32_t plan(int32_t x) const {
+    if constexpr (kFrac < 0) {
+      return plan_sigmoid(x, c);
+    } else {
+      // every segment, then selects
+      const int32_t ax = x < 0 ? (int32_t)(0u - (uint32_t)x) : x;
+      int32_t y = select_ge(ax, c.c1, add32(shr<3>(ax), c.c0625), add32(shr<2>(ax), c.c05));
+      y = select_ge(ax, c.c2375, add32(shr<5>(ax), c.c084375), y);
+      y = select_ge(ax, c.c5, c.one, y);
+      return select_ge(x, 0, y, (int32_t)((uint32_t)c.one - (uint32_t)y));
+    }
+  }
+
+  // PLAN of a conv word
+  __device__ __forceinline__ int32_t act(uint32_t sum, int32_t bias) const {
+    return plan(conv(sum, bias));
+  }
+};
+
+template <int kFrac, int kTotal, int kRound>
+__global__ void __launch_bounds__(kMaxThreads)
+frame_trunk_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w1p,
+                   const int32_t* __restrict__ b1p, const int32_t* __restrict__ w2p,
+                   const int32_t* __restrict__ b2p, int32_t* __restrict__ out,
+                   int H, int W, int th, int tw, int vec, FixedCfg cfg) {
+  extern __shared__ int4 smem4[];
+  const auto F = Word<kFrac, kTotal, kRound>::make(cfg);
+  const int xh = th + kHalo, ld = tw + 4;         // staged input, row stride
   const int h1 = th / 2 + 1, w1 = tw / 2 + 1;     // level-1 extent with halo
   const int n1 = h1 * w1;
-  int32_t* xs = smem;                             // (xh, xw) input words
-  int32_t* qI = xs + xh * xw;                     // 4 x (h1, w1) level-1 quad
+  int32_t* xs = reinterpret_cast<int32_t*>(smem4);
+  int32_t* qI = xs + xh * ld;                     // 4 x (h1, w1) level-1 quad
   int32_t* qB = qI + n1;
   int32_t* qR = qB + n1;
   int32_t* qC = qR + n1;
   const int ti = blockIdx.y, tj = blockIdx.x;
   const int32_t wa[4] = {w1p[0], w1p[1], w1p[2], w1p[3]};
   const int32_t wb[4] = {w2p[0], w2p[1], w2p[2], w2p[3]};
-  const int32_t b1 = b1p[0], b2 = b2p[0], z = 0;
+  const int32_t b1 = b1p[0], b2 = b2p[0];
 
   // 1. the tile plus its bottom/right halo; the frame's padding reads as 0
   const long long i0 = (long long)ti * th, j0 = (long long)tj * tw;
-  for (int k = threadIdx.x; k < xh * xw; k += blockDim.x) {
-    const long long gi = i0 + k / xw, gj = j0 + k % xw;
-    xs[k] = (gi < H && gj < W) ? x[gi * W + gj] : 0;
+  if (vec) {                                      // x 16-byte aligned
+    const int nv = ld / 4;
+    for (int k = threadIdx.x; k < xh * nv; k += blockDim.x) {
+      const int r = k / nv, v = k - r * nv;
+      const long long gi = i0 + r, gj = j0 + 4 * v;
+      smem4[k] = (gi < H && gj < W)
+                     ? __ldg(reinterpret_cast<const int4*>(x + gi * W + gj))
+                     : make_int4(0, 0, 0, 0);
+    }
+  } else {
+    for (int k = threadIdx.x; k < xh * ld; k += blockDim.x) {
+      const int r = k / ld;
+      const long long gi = i0 + r, gj = j0 + (k - r * ld);
+      xs[k] = (gi < H && gj < W) ? x[gi * W + gj] : 0;
+    }
   }
   __syncthreads();
 
   // 2. level 0 (4 masked-tap conv+PLAN maps) pooled into the level-1 quad
   for (int k = threadIdx.x; k < n1; k += blockDim.x) {
-    const int r = k / w1, c = k % w1;
-    const int a = 2 * r, b = 2 * c;               // level-0 window origin
-    const int32_t ii00 = plan_sigmoid(conv_at<T_ALL>(xs, xw, a, b, wa, b1, cfg), cfg);
-    const int32_t ii01 = plan_sigmoid(conv_at<T_ALL>(xs, xw, a, b + 1, wa, b1, cfg), cfg);
-    const int32_t ii10 = plan_sigmoid(conv_at<T_ALL>(xs, xw, a + 1, b, wa, b1, cfg), cfg);
-    const int32_t ii11 = plan_sigmoid(conv_at<T_ALL>(xs, xw, a + 1, b + 1, wa, b1, cfg), cfg);
-    const int32_t li10 = plan_sigmoid(conv_at<T_TOP>(xs, xw, a + 1, b, wa, b1, cfg), cfg);
-    const int32_t li11 = plan_sigmoid(conv_at<T_TOP>(xs, xw, a + 1, b + 1, wa, b1, cfg), cfg);
-    const int32_t il01 = plan_sigmoid(conv_at<T_LEFT>(xs, xw, a, b + 1, wa, b1, cfg), cfg);
-    const int32_t il11 = plan_sigmoid(conv_at<T_LEFT>(xs, xw, a + 1, b + 1, wa, b1, cfg), cfg);
-    const int32_t ll11 = plan_sigmoid(conv_at<T_00>(xs, xw, a + 1, b + 1, wa, b1, cfg), cfg);
+    const int r = k / w1, c = k - r * w1;
+    const int32_t* p = xs + (2 * r) * ld + 2 * c;   // the 3x3 input window
+    // P[i][j][t]: the product for level-0 position (2r+i, 2c+j), tap t
+    uint32_t P[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          P[i][j][t] = F.mul(p[(i + t / 2) * ld + j + t % 2], wa[t]);
+    const uint32_t top10 = P[1][0][0] + P[1][0][1];     // TOP at (1,0)
+    const uint32_t top11 = P[1][1][0] + P[1][1][1];     // TOP at (1,1)
+    const uint32_t left01 = P[0][1][0] + P[0][1][2];    // LEFT at (0,1)
+    const uint32_t left11 = P[1][1][0] + P[1][1][2];    // LEFT at (1,1)
+    const int32_t ii00 = F.act(P[0][0][0] + P[0][0][1] + P[0][0][2] + P[0][0][3], b1);
+    const int32_t ii01 = F.act(left01 + P[0][1][1] + P[0][1][3], b1);
+    const int32_t ii10 = F.act(top10 + P[1][0][2] + P[1][0][3], b1);
+    const int32_t ii11 = F.act(top11 + P[1][1][2] + P[1][1][3], b1);
+    const int32_t li10 = F.act(top10, b1);
+    const int32_t li11 = F.act(top11, b1);
+    const int32_t il01 = F.act(left01, b1);
+    const int32_t il11 = F.act(left11, b1);
+    const int32_t ll11 = F.act(P[1][1][0], b1);
     // level 1's SAME padding: global level-1 row H/2 or column W/2 is zero
     const bool keep = ti * (th / 2) + r < H / 2 && tj * (tw / 2) + c < W / 2;
     qI[k] = keep ? max4(ii00, ii01, ii10, ii11) : 0;   // interior
@@ -131,78 +234,104 @@ __global__ void frame_trunk_kernel(const int32_t* __restrict__ x,
   }
   __syncthreads();
 
-  // 3. level 1 (9 role maps, partial convs recombined with wraparound adds
-  // in _sweep_stage's order), PLAN, pooled into the output quad tile
+  // 3. level 1: the four role words of one level-2 position, PLAN, pooled
   const int h2 = th / 4, w2 = tw / 4, n2 = h2 * w2;
-  for (int k = threadIdx.x; k < 4 * n2; k += blockDim.x) {
-    const int role = k / n2, e = k % n2;
-    const int r = e / w2, c = e % w2;
-    const int a = 2 * r, b = 2 * c;               // level-1 window origin
-    int32_t y;
-    if (role == 0) {            // interior: s_ii2 over the whole window
-      y = max4(plan_sigmoid(conv_at<T_ALL>(qI, w1, a, b, wb, b2, cfg), cfg),
-               plan_sigmoid(conv_at<T_ALL>(qI, w1, a, b + 1, wb, b2, cfg), cfg),
-               plan_sigmoid(conv_at<T_ALL>(qI, w1, a + 1, b, wb, b2, cfg), cfg),
-               plan_sigmoid(conv_at<T_ALL>(qI, w1, a + 1, b + 1, wb, b2, cfg), cfg));
-    } else if (role == 1) {     // last row: s_pi2 on the even row, s_li2 odd
-      int32_t pi[2], li[2];
-      for (int d = 0; d < 2; ++d) {
-        pi[d] = plan_sigmoid(fixed_add(conv_at<T_TOP>(qI, w1, a, b + d, wb, b2, cfg),
-                                       conv_at<T_BOT>(qB, w1, a, b + d, wb, z, cfg), cfg),
-                             cfg);
-        li[d] = plan_sigmoid(conv_at<T_TOP>(qB, w1, a + 1, b + d, wb, b2, cfg), cfg);
-      }
-      y = max4(pi[0], pi[1], li[0], li[1]);
-    } else if (role == 2) {     // last col: s_ip2 on the even col, s_il2 odd
-      int32_t ip[2], il[2];
-      for (int d = 0; d < 2; ++d) {
-        ip[d] = plan_sigmoid(fixed_add(conv_at<T_LEFT>(qI, w1, a + d, b, wb, b2, cfg),
-                                       conv_at<T_RIGHT>(qR, w1, a + d, b, wb, z, cfg), cfg),
-                             cfg);
-        il[d] = plan_sigmoid(conv_at<T_LEFT>(qR, w1, a + d, b + 1, wb, b2, cfg), cfg);
-      }
-      y = max4(ip[0], il[0], ip[1], il[1]);
-    } else {                    // corner: s_pp2, s_pl2, s_lp2, s_ll2
-      const int32_t pp = plan_sigmoid(
-          fixed_add(fixed_add(fixed_add(conv_at<T_00>(qI, w1, a, b, wb, b2, cfg),
-                                        conv_at<T_01>(qR, w1, a, b, wb, z, cfg), cfg),
-                              conv_at<T_10>(qB, w1, a, b, wb, z, cfg), cfg),
-                    conv_at<T_11>(qC, w1, a, b, wb, z, cfg), cfg),
-          cfg);
-      const int32_t pl = plan_sigmoid(
-          fixed_add(conv_at<T_00>(qR, w1, a, b + 1, wb, b2, cfg),
-                    conv_at<T_10>(qC, w1, a, b + 1, wb, z, cfg), cfg),
-          cfg);
-      const int32_t lp = plan_sigmoid(
-          fixed_add(conv_at<T_00>(qB, w1, a + 1, b, wb, b2, cfg),
-                    conv_at<T_01>(qC, w1, a + 1, b, wb, z, cfg), cfg),
-          cfg);
-      const int32_t ll = plan_sigmoid(conv_at<T_00>(qC, w1, a + 1, b + 1, wb, b2, cfg), cfg);
-      y = max4(pp, pl, lp, ll);
-    }
-    const long long oi = (long long)ti * h2 + r, oj = (long long)tj * w2 + c;
-    out[((long long)role * (H / 4) + oi) * (W / 4) + oj] = y;
+  const long long plane = (long long)(H / 4) * (W / 4);
+  for (int k = threadIdx.x; k < n2; k += blockDim.x) {
+    const int r = k / w2, c = k - r * w2;
+    const int o = (2 * r) * w1 + 2 * c;           // window origin in the quad
+    // role 0 (interior): Q[i][j][t] over I, the 16 products of s_ii2
+    uint32_t Q[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          Q[i][j][t] = F.mul(qI[o + (i + t / 2) * w1 + j + t % 2], wb[t]);
+    const uint32_t topI0 = Q[0][0][0] + Q[0][0][1], topI1 = Q[0][1][0] + Q[0][1][1];
+    const uint32_t leftI0 = Q[0][0][0] + Q[0][0][2], leftI1 = Q[1][0][0] + Q[1][0][2];
+    const int32_t y0 = max4(F.act(topI0 + Q[0][0][2] + Q[0][0][3], b2),
+                            F.act(topI1 + Q[0][1][2] + Q[0][1][3], b2),
+                            F.act(leftI1 + Q[1][0][1] + Q[1][0][3], b2),
+                            F.act(Q[1][1][0] + Q[1][1][1] + Q[1][1][2] + Q[1][1][3], b2));
+    // role 1 (last row): B's row 1 of the window, 8 products; s_pi2 is
+    // I's TOP plus B's BOT, s_li2 B's TOP one row down
+    const int32_t B0 = qB[o + w1], B1 = qB[o + w1 + 1], B2 = qB[o + w1 + 2];
+    const uint32_t B0w0 = F.mul(B0, wb[0]), B0w2 = F.mul(B0, wb[2]);
+    const uint32_t B1w0 = F.mul(B1, wb[0]), B1w1 = F.mul(B1, wb[1]);
+    const uint32_t B1w2 = F.mul(B1, wb[2]), B1w3 = F.mul(B1, wb[3]);
+    const uint32_t B2w1 = F.mul(B2, wb[1]), B2w3 = F.mul(B2, wb[3]);
+    const int32_t y1 = max4(F.act(topI0 + B0w2 + B1w3, b2), F.act(topI1 + B1w2 + B2w3, b2),
+                            F.act(B0w0 + B1w1, b2), F.act(B1w0 + B2w1, b2));
+    // role 2 (last col): R's column 1 of the window, 8 products; s_ip2 is
+    // I's LEFT plus R's RIGHT, s_il2 R's LEFT one column right
+    const int32_t R0 = qR[o + 1], R1 = qR[o + w1 + 1], R2 = qR[o + 2 * w1 + 1];
+    const uint32_t R0w0 = F.mul(R0, wb[0]), R0w1 = F.mul(R0, wb[1]);
+    const uint32_t R1w0 = F.mul(R1, wb[0]), R1w1 = F.mul(R1, wb[1]);
+    const uint32_t R1w2 = F.mul(R1, wb[2]), R1w3 = F.mul(R1, wb[3]);
+    const uint32_t R2w2 = F.mul(R2, wb[2]), R2w3 = F.mul(R2, wb[3]);
+    const int32_t y2 = max4(F.act(leftI0 + R0w1 + R1w3, b2), F.act(R0w0 + R1w2, b2),
+                            F.act(leftI1 + R1w1 + R2w3, b2), F.act(R1w0 + R2w2, b2));
+    // role 3 (corner): C at (1,1) of the window, 4 products; s_pp2, s_pl2
+    // and s_lp2 take their other taps from I, R and B above
+    const int32_t C = qC[o + w1 + 1];
+    const int32_t y3 = max4(F.act(Q[0][0][0] + R0w1 + B0w2 + F.mul(C, wb[3]), b2),
+                            F.act(R0w0 + F.mul(C, wb[2]), b2),
+                            F.act(B0w0 + F.mul(C, wb[1]), b2), F.act(F.mul(C, wb[0]), b2));
+    const long long e = ((long long)ti * h2 + r) * (W / 4) + (long long)tj * w2 + c;
+    out[e] = y0;
+    out[plane + e] = y1;
+    out[2 * plane + e] = y2;
+    out[3 * plane + e] = y3;
   }
+}
+
+template <int kFrac, int kTotal, int kRound>
+cudaError_t launch(const int32_t* x, const int32_t* w1, const int32_t* b1,
+                   const int32_t* w2, const int32_t* b2, int32_t* out, int H,
+                   int W, int th, int tw, const FixedCfg& cfg, cudaStream_t stream) {
+  const auto kernel = frame_trunk_kernel<kFrac, kTotal, kRound>;
+  const int n1 = (th / 2 + 1) * (tw / 2 + 1);
+  const int passes = (n1 + kMaxThreads - 1) / kMaxThreads;
+  const int threads = ((n1 + passes - 1) / passes + 31) / 32 * 32;
+  const int smem = 4 * ((th + kHalo) * (tw + 4) + 4 * n1);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  kernel<<<dim3(W / tw, H / th), threads, smem, stream>>>(x, w1, b1, w2, b2, out, H,
+                                                          W, th, tw, vec, cfg);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // The C interface (loaded with ctypes).  Makes `device` current for this
 // thread, enqueues one launch on `stream` (grid: W/tw x H/th tiles), does
-// not synchronise, and returns cudaGetLastError().  The wrapper keeps the
-// tile's shared memory within the 48 KB a block gets without opting in.
+// not synchronise, and returns a CUDA error code.
+// The three wraparound STANDARD_CONFIGS take their specialised kernels.
 extern "C" int frame_trunk_launch(int device, const int32_t* x,
                                   const int32_t* w1, const int32_t* b1,
                                   const int32_t* w2, const int32_t* b2,
                                   int32_t* out, int H, int W, int th, int tw,
                                   FixedCfg cfg, void* stream) {
   cudaSetDevice(device);
-  const int n1 = (th / 2 + 1) * (tw / 2 + 1);
-  const int smem = 4 * ((th + kHalo) * (tw + kHalo) + 4 * n1);
-  int threads = ((n1 + 31) / 32) * 32;            // level-1 positions, whole warps
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const dim3 grid(W / tw, H / th);
-  frame_trunk_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, w1, b1, w2, b2, out, H, W, th, tw, cfg);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (cfg.saturate) {
+    e = cudaErrorInvalidValue;              // the wrapper rejects these first
+  } else if (cfg.frac_bits == 16 && cfg.total_bits == 32 && cfg.round_nearest) {
+    e = launch<16, 32, 1>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
+  } else if (cfg.frac_bits == 16 && cfg.total_bits == 32) {
+    e = launch<16, 32, 0>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
+  } else if (cfg.frac_bits == 8 && cfg.total_bits == 16 && cfg.round_nearest) {
+    e = launch<8, 16, 1>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
+  } else {
+    e = launch<-1, -1, -1>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
+  }
+  return (int)e;
 }
+

@@ -14,7 +14,9 @@ it is.  `-Xptxas -v` (registers, shared memory, spills) goes to
 `<name>-<hash>.log` beside each library; `build_report()` returns it.
 No `--use_fast_math`: the saturation heuristic's float ops must round as
 the reference's do, and the float kernels' `expf`, division and
-denormals must be IEEE's, as their plain versions' are.
+denormals must be IEEE's, as their plain versions' are.  No `-lcuda`
+either: `quant_matmul.cu` takes the driver's `cuTensorMapEncodeTiled`
+through the runtime's `cudaGetDriverEntryPoint`.
 """
 from __future__ import annotations
 
@@ -78,7 +80,9 @@ SIGNATURES = {
         "sigmoid_pla_launch": [_I, _P, _P, _LL, _P],
     },
     "quant_matmul": {
-        "quant_matmul_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "quant_matmul_dp4a_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "quant_matmul_transpose_launch": [_I, _P, _P, _I, _I, _P],
+        "quant_matmul_wgmma_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 
@@ -115,7 +119,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in SOURCES:
-            so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+            so = library_path(name)
             if not so.exists():
                 tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
                 procs[name] = (so, tmp, subprocess.Popen(
@@ -133,7 +137,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         for name in SOURCES:
-            so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+            so = library_path(name)
             lib = ctypes.CDLL(str(so))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
@@ -145,6 +149,11 @@ def build_all() -> dict[str, ctypes.CDLL]:
             _logs[name] = log.read_text() if log.exists() else ""
         build_seconds = time.perf_counter() - t0
         return dict(_libs)
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of csrc/<name>.cu is (or would be) built."""
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -22,27 +22,32 @@ masked partial convs are recombined with wraparound adds, which are
 associative only without saturation.
 
 Tile choice for Hopper.  The reference sizes tiles to a 14 MB TPU VMEM
-budget; a thread block here gets 48 KB of shared memory without opting
-in to more, and a tile must leave enough blocks to fill the card.  One block computes one
-(th, tw) tile and keeps in shared memory
+budget.  Here one block computes one (th, tw) tile and keeps in dynamic
+shared memory
 
-    (th+3)(tw+3)              the input tile plus its bottom/right halo
+    (th+3)(tw+4)              the input tile plus its bottom/right halo,
+                              a row padded to whole 16-byte vectors
   + 4 (th/2+1)(tw/2+1)        the level-1 quad with its pooled halo row/col
 
-int32 words (`frame_trunk_smem_bytes`); level-0 words and level-1 role
-words live in registers.  `choose_tile` keeps tiles within those 48 KB
-(so four blocks fit on one SM) and, among
-the tiles that divide the frame on the pooled lattice (multiples of 4),
-takes
+int32 words (`frame_trunk_smem_bytes`), up to the 227 KB a block may opt
+in to (`SMEM_MAX`); level-0 words and level-1 role words live in
+registers.  The frame's work is spread over the SMs by blocks, so
+`choose_tile` takes, among the tiles that divide the frame on the pooled
+lattice (multiples of 4), fit `SMEM_MAX` and give every SM a block where
+the frame has that many tiles, the least
 
-    the largest area among those giving at least min(132, max tiles)
-    blocks (132 = the H100's SMs), ties to the squarer tile, then the
-    taller one.
+    ceil(blocks / 132) * (n1 + 2 n2 + staged / 16)
 
-So 112x112 runs as 196 tiles of 8x8, 512x512 as 256 of 32x32 and
-1080x1920 as 400 tiles of 108x48.  An explicit `tile` must be multiples
-of 4 that divide the frame and fit the same 48 KB (a 112x112 tile needs
-about 102 KB and is refused).
+(132 = the H100's SMs; the SM with the most blocks sets the time; n1
+level-1 positions with halo, each 16 products and 9 PLAN words; n2
+level-2 positions, each 36 products and 16 PLAN words, about twice a
+level-1 position; staged input words, a 16-byte load per four), ties to
+the larger tile, then the squarer, then the taller.  Larger tiles
+recompute less halo, smaller ones balance the SMs better.  So 112x112
+runs as 392 tiles of 4x8, 512x512 as 256 of 32x32 and 1080x1920 as 648
+of 40x80.  An explicit `tile` must be multiples of 4 that divide the
+frame and fit `SMEM_MAX` (a 112x112 tile needs about 103 KB and is taken;
+a 168x168 one needs about 228 KB and is refused).
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ from repro_torch.kernels.fixed_conv.ops import fixed_conv2d_plain
 
 HALO = 3                       # input rows/cols of bottom/right apron per tile
 N_SM = 132                     # H100 SXM streaming multiprocessors
-SMEM_STATIC = 48 * 1024        # shared memory a block gets without opting in
+SMEM_MAX = 227 * 1024          # dynamic shared memory a block may opt in to
 
 # tap masks over the row-major (4,) kernel, as in frame_trunk/ref.py
 _M_ALL = (1, 1, 1, 1)
@@ -109,7 +114,15 @@ def _check_wraparound(cfg: fxp.FixedPointConfig) -> None:
 
 def frame_trunk_smem_bytes(th: int, tw: int) -> int:
     """Shared memory of one (th, tw) tile's block (see the module note)."""
-    return 4 * ((th + HALO) * (tw + HALO) + 4 * (th // 2 + 1) * (tw // 2 + 1))
+    return 4 * ((th + HALO) * (tw + 4) + 4 * (th // 2 + 1) * (tw // 2 + 1))
+
+
+def _tile_cost(H: int, W: int, th: int, tw: int) -> float:
+    """The chooser's estimate of the busiest SM's work (module note)."""
+    blocks = (H // th) * (W // tw)
+    n1 = (th // 2 + 1) * (tw // 2 + 1)
+    n2 = (th // 4) * (tw // 4)
+    return -(-blocks // N_SM) * (n1 + 2 * n2 + (th + HALO) * (tw + 4) / 16)
 
 
 def _tile_candidates(n: int) -> list[int]:
@@ -121,14 +134,15 @@ def _tile_candidates(n: int) -> list[int]:
 def choose_tile(H: int, W: int) -> tuple[int, int]:
     """The (th, tw) tile of an (H, W) frame, by the rule in the module
     note.  Deterministic, and cached: the scan costs milliseconds of host
-    time at camera sizes, more than the launch.  A 4x4 tile (340 bytes)
+    time at camera sizes, more than the launch.  A 4x4 tile (368 bytes)
     always fits."""
     check_frame_geometry(H, W)
-    fits = [(th, tw) for th in _tile_candidates(H) for tw in _tile_candidates(W)
-            if frame_trunk_smem_bytes(th, tw) <= SMEM_STATIC]
     want = min(N_SM, (H // 4) * (W // 4))
-    enough = [t for t in fits if (H // t[0]) * (W // t[1]) >= want]
-    return max(enough, key=lambda t: (t[0] * t[1], min(t), t[0]))
+    fits = [(th, tw) for th in _tile_candidates(H) for tw in _tile_candidates(W)
+            if frame_trunk_smem_bytes(th, tw) <= SMEM_MAX
+            and (H // th) * (W // tw) >= want]
+    return min(fits, key=lambda t: (_tile_cost(H, W, *t), -t[0] * t[1],
+                                    abs(t[0] - t[1]), -t[0]))
 
 
 def _check_tile(tile: tuple[int, int], H: int, W: int) -> tuple[int, int]:
@@ -137,10 +151,10 @@ def _check_tile(tile: tuple[int, int], H: int, W: int) -> tuple[int, int]:
         raise ValueError(
             f"tile {th}x{tw} must be multiples of 4 dividing the "
             f"{H}x{W} frame")
-    if frame_trunk_smem_bytes(th, tw) > SMEM_STATIC:
+    if frame_trunk_smem_bytes(th, tw) > SMEM_MAX:
         raise ValueError(
             f"tile {th}x{tw} needs {frame_trunk_smem_bytes(th, tw)} B of "
-            f"shared memory; the kernel's block has at most {SMEM_STATIC} B")
+            f"shared memory; the kernel's block may opt in to at most {SMEM_MAX} B")
     return th, tw
 
 

@@ -9,10 +9,13 @@ plain version and launches its kernel for CUDA tensors:
                 Pallas block and budgets VMEM, but the kernel here is one
                 thread per output word, so neither carries over
   quant_matmul  int8 x int8 -> exact int32 sum -> float32 dequant
-                (`quant_matmul_pallas`), kernel in `csrc/quant_matmul.cu`;
-                the reference pads every extent to its (bm, bn, bk) blocks,
-                a TPU tiling: the kernel here stages zeros past the edges
-                itself, so no padded copy is made
+                (`quant_matmul_pallas`), two kernels in
+                `csrc/quant_matmul.cu`, picked by `quant_matmul_route`:
+                "wgmma" (the int8 tensor cores, TMA-fed) where K % 16 ==
+                N % 4 == 0, "dp4a" (the CUDA cores) elsewhere; the
+                reference pads every extent to its (bm, bn, bk) blocks, a
+                TPU tiling: both kernels read zeros past the edges
+                themselves, so no padded copy is made
 """
 from __future__ import annotations
 
@@ -79,6 +82,31 @@ def quant_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, sx=1.0,
             * _scales(sw, N, xq.device)[None, :])
 
 
+def quant_matmul_route(xq: torch.Tensor, wq: torch.Tensor) -> str:
+    """The kernel a CUDA call takes.  "wgmma" where TMA can describe xq
+    and the K-major copy of wq (a row stride of K bytes, a multiple of 16,
+    and a 16-byte aligned xq) and the transpose kernel can move wq in
+    4-byte words (N % 4 == 0, a 4-byte aligned wq).  "dp4a" elsewhere (the
+    dense layer's K = 49 and N = 10), where a call is launch-bound and
+    needs no copy of wq."""
+    K, N = wq.shape
+    aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 4 == 0
+    return "wgmma" if K % 16 == 0 and N % 4 == 0 and aligned else "dp4a"
+
+
+def transpose_wq(wq: torch.Tensor) -> torch.Tensor:
+    """The (N, K) K-major copy of a CUDA int8 wq (K, N), K % 4 == N % 4 ==
+    0: `wgmma` takes s8 operands only K-major.  The transpose kernel of
+    `csrc/quant_matmul.cu`, one launch of the wgmma route's two."""
+    K, N = wq.shape
+    wt = torch.empty((N, K), dtype=torch.int8, device=wq.device)
+    lib = _build.library("quant_matmul")
+    dev, stream = stream_of(wq)
+    rc = lib.quant_matmul_transpose_launch(dev, wq.data_ptr(), wt.data_ptr(), K, N, stream)
+    _build.check(lib, rc, "quant_matmul (transpose)")
+    return wt
+
+
 def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, sx=1.0, sw=1.0) -> torch.Tensor:
     """Dequantized float32 (xq @ wq) * sx[:, None] * sw[None, :]: xq (M,K)
     int8, wq (K,N) int8, sx a scalar or (M,), sw a scalar or (N,) -> (M,N)."""
@@ -96,12 +124,19 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, sx=1.0, sw=1.0) -> torch.Te
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     if out.numel() == 0:
         return out
-    if -(-M // 64) >= 2 ** 16:
-        raise ValueError(f"quant_matmul: M={M} exceeds the kernel's grid")
     lib = _build.library("quant_matmul")
     dev, stream = stream_of(xq)
-    rc = lib.quant_matmul_launch(dev, xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
-                                 sw.data_ptr(), out.data_ptr(), M, K, N, stream)
+    if quant_matmul_route(xq, wq) == "wgmma":
+        wt = transpose_wq(wq)
+        rc = lib.quant_matmul_wgmma_launch(dev, xq.data_ptr(), wt.data_ptr(),
+                                           sx.data_ptr(), sw.data_ptr(),
+                                           out.data_ptr(), M, K, N, stream)
+    else:
+        if -(-M // 64) >= 2 ** 16:
+            raise ValueError(f"quant_matmul: M={M} exceeds the dp4a kernel's grid")
+        rc = lib.quant_matmul_dp4a_launch(dev, xq.data_ptr(), wq.data_ptr(),
+                                          sx.data_ptr(), sw.data_ptr(),
+                                          out.data_ptr(), M, K, N, stream)
     _build.check(lib, rc, "quant_matmul")
     LAUNCHES["quant_matmul"] += 1
     return out

@@ -122,6 +122,34 @@ def test_float_pool_plan_and_quant_matmul_match_plain_on_card(cuda):
                                D.quant_matmul_plain(xq, wq, sx, sw), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("M,K,N,route", [
+    (129, 65, 97, "dp4a"),            # ragged M, N and K
+    (200, 4160, 136, "wgmma"),        # ragged M, N and K past a 128-byte K step
+    (200, 136, 4160, "dp4a"),         # K % 16 == 8
+    (96, 4096, 130, "dp4a"),          # N % 4 == 2
+    (512, 512, 512, "wgmma"),         # whole 128-row tiles and 128-byte K steps
+    (64, 49, 10, "dp4a"),             # the served dense layer, K = 49
+    (16384, 49, 10, "dp4a"),
+    (130, 16, 200, "wgmma"),          # one K step, mostly past K
+])
+def test_quant_matmul_is_exact_on_every_route_on_card(cuda, M, K, N, route):
+    rng = np.random.default_rng(M + K + N)
+    xq = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(cuda)
+    wq = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(cuda)
+    xq[M // 2], wq[:, N // 2] = -128, -128          # the largest products
+    assert D.quant_matmul_route(xq, wq) == route
+    reset_launches()
+    got = D.quant_matmul(xq, wq, 1.0, 1.0)
+    assert launches() == {"quant_matmul": 1}
+    exact = xq.cpu().to(torch.int64) @ wq.cpu().to(torch.int64)
+    assert torch.equal(got.cpu(), exact.to(torch.float32))
+    assert float(got[M // 2, N // 2]) == 128 * 128 * K
+    sx = torch.from_numpy(rng.uniform(1e-3, 0.1, M).astype(np.float32)).to(cuda)
+    sw = torch.from_numpy(rng.uniform(1e-3, 0.1, N).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(D.quant_matmul(xq, wq, sx, sw),
+                               D.quant_matmul_plain(xq, wq, sx, sw), rtol=1e-6, atol=0)
+
+
 @pytest.mark.parametrize("backend,plain,per_step", [
     ("cuda", "ref", {"conv2d": 2, "maxpool2d": 2}),
     ("cuda_plan", "plan", {"conv2d": 2, "maxpool2d": 2, "sigmoid_pla": 1}),

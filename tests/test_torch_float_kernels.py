@@ -29,7 +29,8 @@ from repro.kernels.sigmoid_pla import sigmoid_pla_ref as j_pla_ref  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d, conv2d_plain  # noqa: E402
 from repro_torch.kernels.maxpool2d import maxpool2d, maxpool2d_plain  # noqa: E402
-from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain  # noqa: E402
+from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_plain,  # noqa: E402
+                                              quant_matmul_route)
 from repro_torch.kernels.sigmoid_pla import sigmoid_pla, sigmoid_pla_plain  # noqa: E402
 
 CONV_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -144,6 +145,18 @@ def test_quant_matmul_scalar_scales_and_bad_arguments():
         quant_matmul(xq, wq.T.contiguous())
     with pytest.raises(ValueError, match="scales"):
         quant_matmul(xq, wq, torch.ones(4))
+
+
+@pytest.mark.parametrize("K,N,route", [(49, 10, "dp4a"), (16, 8, "wgmma"),
+                                       (4096, 4096, "wgmma"), (4104, 64, "dp4a"),
+                                       (97, 64, "dp4a"), (4160, 136, "wgmma"),
+                                       (4096, 130, "dp4a")])
+def test_quant_matmul_route_follows_the_tma_stride_rule(K, N, route):
+    xq, wq = torch.zeros((3, K), dtype=torch.int8), torch.zeros((K, N), dtype=torch.int8)
+    assert quant_matmul_route(xq, wq) == route
+    if route == "wgmma":                    # an unaligned view takes dp4a
+        flat = torch.zeros(3 * K + 1, dtype=torch.int8)
+        assert quant_matmul_route(flat[1:].view(3, K), wq) == "dp4a"
 
 
 @pytest.mark.parametrize("shape", [(7,), (33, 5), (2, 3, 4, 5), (1000,), (256, 128)])

@@ -24,6 +24,11 @@ from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.frame_trunk import ops as FT  # noqa: E402
 
 WRAP = ("q16_16", "q16_16_trunc", "q8_8")
+# the tiles choose_tile picks (named in kernels/frame_trunk/ops.py)
+CHOSEN = {(112, 112): (4, 8), (512, 512): (32, 32), (1080, 1920): (40, 80)}
+# wraparound configs that no specialised kernel covers: the generic one
+GENERIC = {"q12_4": tfxp.FixedPointConfig(16, 4),
+           "q8_8_trunc": tfxp.FixedPointConfig(16, 8, round_nearest=False)}
 SHAPES = ((8, 8), (16, 12), (24, 16))
 # the reference kernel in interpret mode costs seconds per call, so each
 # shape meets it once, in its own config and forced tiling: together they
@@ -113,9 +118,9 @@ def test_rejects_bad_geometry_tiles_and_saturation_like_the_reference(ref):
     big = torch.zeros((480, 480), dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
         FT.frame_trunk_quad(big, w, b, w, b, cfg=cfg, tile=(240, 240))
-    with pytest.raises(ValueError, match="shared memory"):   # ~102 KB > 48 KB
-        FT.frame_trunk_quad(torch.zeros((112, 112), dtype=torch.int32), w, b, w, b,
-                            cfg=cfg, tile=(112, 112))
+    with pytest.raises(ValueError, match="shared memory"):   # ~228 KB > 227 KB
+        FT.frame_trunk_quad(torch.zeros((168, 168), dtype=torch.int32), w, b, w, b,
+                            cfg=cfg, tile=(168, 168))
     for sat in ("q16_16_sat", "q8_8_sat"):
         with pytest.raises(NotImplementedError, match="wraparound"):
             FT.frame_trunk_quad(x, w, b, w, b, cfg=tfxp.STANDARD_CONFIGS[sat])
@@ -135,23 +140,47 @@ def test_choose_tile_is_deterministic_and_fits_shared_memory(frame):
     FT.choose_tile.cache_clear()
     assert FT.choose_tile(H, W) == (th, tw)
     assert th % 4 == 0 and tw % 4 == 0 and H % th == 0 and W % tw == 0
-    assert FT.frame_trunk_smem_bytes(th, tw) <= FT.SMEM_STATIC
-    n_tiles = (H // th) * (W // tw)
-    assert n_tiles >= min(FT.N_SM, (H // 4) * (W // 4))
-    # no tile of larger area meets the same two limits
+    assert FT.frame_trunk_smem_bytes(th, tw) <= FT.SMEM_MAX
+    want = min(FT.N_SM, (H // 4) * (W // 4))
+    assert (H // th) * (W // tw) >= want
+    # no other tile within the opt-in limit and the block count has a lower
+    # estimated cost
+    best = FT._tile_cost(H, W, th, tw)
     for a in range(4, H + 1, 4):
         for c in range(4, W + 1, 4):
-            if H % a or W % c or a * c <= th * tw:
+            if (H % a or W % c or FT.frame_trunk_smem_bytes(a, c) > FT.SMEM_MAX
+                    or (H // a) * (W // c) < want):
                 continue
-            assert (FT.frame_trunk_smem_bytes(a, c) > FT.SMEM_STATIC
-                    or (H // a) * (W // c) < min(FT.N_SM, (H // 4) * (W // 4)))
+            assert FT._tile_cost(H, W, a, c) >= best
 
 
 def test_choose_tile_values_named_in_the_module_note():
-    assert FT.choose_tile(112, 112) == (8, 8)
-    assert FT.choose_tile(512, 512) == (32, 32)
-    assert FT.choose_tile(1080, 1920) == (108, 48)
-    assert FT.frame_trunk_smem_bytes(4, 4) == 340
+    assert FT.choose_tile(112, 112) == CHOSEN[(112, 112)]
+    assert FT.choose_tile(512, 512) == CHOSEN[(512, 512)]
+    assert FT.choose_tile(1080, 1920) == CHOSEN[(1080, 1920)]
+    assert FT.frame_trunk_smem_bytes(4, 4) == 368
+    assert FT.frame_trunk_smem_bytes(112, 112) == 105344       # opts in: > 48 KB
+    assert FT.frame_trunk_smem_bytes(168, 168) == 233248       # > SMEM_MAX
+
+
+@pytest.mark.parametrize("tile,fits", [((112, 112), True), ((164, 164), True),
+                                       ((168, 168), False), ((4, 1000), True)])
+def test_check_tile_takes_tiles_up_to_the_opt_in_limit(tile, fits):
+    H, W = tile[0] * 2, tile[1] * 2
+    assert (FT.frame_trunk_smem_bytes(*tile) <= FT.SMEM_MAX) == fits
+    if fits:
+        assert FT._check_tile(tile, H, W) == tile
+    else:
+        with pytest.raises(ValueError, match="at most 232448 B"):
+            FT._check_tile(tile, H, W)
+
+
+def test_wrapper_takes_a_tile_above_48kb_on_cpu_tensors():
+    cfg = tfxp.Q16_16
+    args = _t(_inputs(11, (112, 112), cfg))
+    assert FT.frame_trunk_smem_bytes(112, 112) > 48 * 1024
+    assert torch.equal(FT.frame_trunk_quad(*args, cfg=cfg, tile=(112, 112)),
+                       FT.frame_trunk_quad_plain(*args, cfg=cfg))
 
 
 @pytest.fixture
@@ -173,3 +202,17 @@ def test_frame_trunk_kernel_matches_plain_on_card(cuda, cfg_name):
             got = FT.frame_trunk_quad(*args, cfg=cfg, tile=tile)
             assert launches() == {"frame_trunk": 1}
             assert torch.equal(got, want), (H, W, tile)
+
+
+@pytest.mark.parametrize("cfg_name", WRAP + tuple(GENERIC))
+def test_frame_trunk_kernel_matches_plain_above_48kb_on_card(cuda, cfg_name):
+    cfg = tfxp.STANDARD_CONFIGS.get(cfg_name) or GENERIC[cfg_name]
+    for (H, W), tiles in (((112, 112), (None, (112, 112), (56, 112))),
+                          ((336, 328), (None, (168, 164), (112, 164)))):
+        args = [t.to(cuda) for t in _t(_inputs(H * W % 97, (H, W), cfg))]
+        want = FT.frame_trunk_quad_plain(*args, cfg=cfg)
+        for tile in tiles:
+            if tile is not None:
+                assert FT.frame_trunk_smem_bytes(*tile) > 48 * 1024
+            got = FT.frame_trunk_quad(*args, cfg=cfg, tile=tile)
+            assert torch.equal(got, want), (cfg_name, H, W, tile)
