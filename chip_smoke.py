@@ -10,9 +10,10 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             torch.cuda.get_device_name
   build     compile the kernels of src/repro_torch/csrc with nvcc (sm_90a),
             timed, with ptxas' register counts
-  ptxas     for the two redesigned sources (quant_matmul.cu, frame_trunk.cu):
-            each kernel's registers, spills and static shared memory from
-            `-Xptxas -v`, and its SASS instruction counts (cuobjdump)
+  ptxas     for the redesigned sources (quant_matmul.cu, frame_trunk.cu,
+            fixed_dense.cu, fixed_net.cu): each kernel's registers, spills
+            and static shared memory from `-Xptxas -v`, and its SASS
+            instruction counts (cuobjdump)
   golden    each kernel against tests/golden/fixed_golden.json, word for
             word, in all five STANDARD_CONFIGS; then, with the committed
             params fixture tests/golden/seeded_params.json, the frame_trunk
@@ -32,7 +33,15 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             1080x1920, with tiles past 48 KB of shared memory; times at the
             three frames in Q16.16, at 1080x1920 in each config and with
             forced tiles; fixed_dense also at the camera frame's window head
-            (31,654 windows).  Then the float and
+            (31,654 windows), on the rows route, and on the generic one
+            where the launcher takes it (N > 16, rows past the shared
+            memory), each shape's route named; the large case also in the
+            saturating formats.  fixed_smallnet,
+            the served step in one launch, at B = 1, 63, 64 and 16384 (and
+            odd extents) in all five configs, timed in Q16.16 beside the
+            composed four-launch step; fixed_window_head at 112x112, 56x84
+            and 1080x1920 frames in all five configs, timed beside the
+            four-op head (stack, gather, dense, PLAN).  Then the float and
             int8 kernels: sigmoid_pla (torch.equal, shapes up to 2^24
             words, the breakpoints, +-0.0 and their float neighbours),
             maxpool2d (torch.equal in float32 and bfloat16, odd extents,
@@ -47,13 +56,15 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   serve     VisionEngine(backend="fixed_cuda", batch_size=64, device="cuda"),
             threaded, over 1024 synth_mnist images in Q16.16 and in Q8.8:
             every score word equals the plain `fixed` backend's on the CPU,
-            the ledger is accounted, and the launch counts rose by 2 conv,
-            1 dense and 1 sigmoid launch per step; requests per second over
-            the client's wall window and over the engine's busy time, and
+            the ledger is accounted, and the launch counts rose by one
+            fixed_smallnet launch per step; requests per second over the
+            client's wall window and over the engine's busy time, and
             p50/p99 latency
-  composed  the same engine over a backend whose stage is the composed
-            conv+PLAN launch then the pool launch (the hooks the frame sweep
-            composes): drives the max-pool kernel on a served path
+  composed  the same engine over a backend that composes the net from its
+            stages, each the conv+PLAN launch then the pool launch (the
+            hooks the frame sweep composes): 2 conv, 2 pool, 1 dense and 1
+            sigmoid launch per step, which drives the per-stage kernels on
+            a served path
   serve     the float and int8 backends: VisionEngine over 1024 requests
             on cuda_plan and int8 and 256 on cuda, ref and plan; every
             score within 2e-5 of the same formed batch on the backend's
@@ -66,8 +77,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             FcnSweep(stride=8)) in throughput mode, in Q16.16 and Q8.8: each
             frame's detections equal the plain `fixed` sweep's on the CPU,
             the first 4 frames' score words equal the CPU's (sweep and host
-            tiler), the ledger holds, and each frame is 1 frame_trunk, 1
-            dense and 1 sigmoid launch; frames/s over the client's wall
+            tiler), the ledger holds, and each frame is 1 frame_trunk and 1
+            fixed_window_head launch; frames/s over the client's wall
             window and p50/p99 frame latency.  Then the composed route
             (megakernel=False: 20 conv, 2 pool, 12 sigmoid, 1 dense per
             frame) beside it, and a 4-frame 1080x1920 clip through the
@@ -121,6 +132,7 @@ SWEEP_FRAMES = 64
 SWEEP_STRIDE = 8
 CAMERA = (1080, 1920)
 CAMERA_FRAMES = 4
+SATURATING = ("q16_16", "q16_16_sat", "q8_8_sat")   # a case timed in these formats too
 
 KERNELS = {
     "fixed_conv2d": ("src/repro_torch/csrc/fixed_conv.cu",
@@ -131,6 +143,12 @@ KERNELS = {
                       "src/repro/kernels/fixed_conv/kernel.py:133"),
     "fixed_dense": ("src/repro_torch/csrc/fixed_dense.cu",
                     "src/repro/kernels/quant_matmul/kernel.py:85"),
+    # the served step in one launch: rows 1, 3 and 4 fused, in row 1's place
+    "fixed_smallnet": ("src/repro_torch/csrc/fixed_net.cu",
+                       "src/repro/kernels/fixed_conv/kernel.py:85"),
+    # the sweep's window head in one launch: row 4 with its gather and PLAN
+    "fixed_window_head": ("src/repro_torch/csrc/fixed_dense.cu",
+                          "src/repro/kernels/quant_matmul/kernel.py:85"),
     "frame_trunk": ("src/repro_torch/csrc/frame_trunk.cu",
                     "src/repro/kernels/frame_trunk/kernel.py:172"),
     "conv2d": ("src/repro_torch/csrc/float_kernels.cu",
@@ -307,10 +325,16 @@ def kernel_cases():
             ("large (16384,10)", *sigmoid(L, 10), "large"),
             ("frame (512,512)", *sigmoid(512, 512), "large"),
         ],
+        # the launcher takes the rows route where N <= 16 and the rows fit
+        # the shared memory, the generic route elsewhere
         "fixed_dense": [
             ("engine (64,49)@(49,10)", *dense(E, 49, 10), "engine"),
-            ("large (16384,49)@(49,10)", *dense(L, 49, 10), "large"),
+            ("large (16384,49)@(49,10)", *dense(L, 49, 10), "large", SATURATING),
             (f"camera window head ({C},49)@(49,10)", *dense(C, 49, 10), "large"),
+            ("N > 16: (16384,49)@(49,20)", *dense(L, 49, 20), "generic"),
+            ("long rows (100,900)@(900,10)", *dense(100, 900, 10), "generic"),
+            ("N = 16 (130,49)@(49,16)", *dense(130, 49, 16), None),
+            ("N = 11 (65,49)@(49,11)", *dense(65, 49, 11), None),
             ("odd (3,7)@(7,5)", *dense(3, 7, 5), None),
         ],
     }
@@ -434,7 +458,7 @@ def phase_kernels(card: str) -> dict:
         lib_fn = library_call(name)
         shapes = []
         reset_launches()
-        for label, make, (nbytes, ops), timing in cases:
+        for label, make, (nbytes, ops), timing, *timed_cfgs in cases:
             for cname, cfg in fxp.STANDARD_CONFIGS.items():
                 host_args, kw = make(rng, cfg)
                 args = [torch.from_numpy(a).cuda() for a in host_args]
@@ -453,20 +477,28 @@ def phase_kernels(card: str) -> dict:
                 if lib_fn is not None:
                     expect(torch.equal(lib_fn(*args), got),
                            f"{name} {label}: library call differs from kernel")
-                if timing is None or cname != "q16_16":
+                if timing is None or cname not in (timed_cfgs[0] if timed_cfgs
+                                                   else ("q16_16",)):
                     continue
-                reps = 200 if timing == "engine" else 20
+                reps = 200 if label.startswith("engine") else 20
                 ms = device_ms(lambda: kernel(*args, **kw), reps)
                 pms = device_ms(lambda: plain(*args, **kw), max(reps // 10, 5))
                 b_ms, b_by = bound_ms(nbytes, ops)
                 lms = (device_ms(lambda: lib_fn(*args), reps)
                        if lib_fn is not None else None)
-                shapes.append({"case": label, "timing": timing, "ms": ms,
+                shapes.append({"case": label, "cfg": cname, "timing": timing, "ms": ms,
                                "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
                                "library_ms": lms, "bytes": nbytes, "ops": ops})
+                if name == "fixed_dense":                  # the launcher's choice
+                    shapes[-1]["route"] = D.fixed_dense_route(*args[1].shape)
+
+        if name == "fixed_dense":
+            routes = {kn: D.fixed_dense_route(*kn) for kn in ((49, 10), (49, 20), (900, 10))}
+            expect(routes == {(49, 10): "rows", (49, 20): "generic", (900, 10): "generic"},
+                   f"fixed_dense routes {routes}")
 
         def total(timing, key):
-            return sum(r[key] for r in shapes if r["timing"] == timing)
+            return sum(r[key] for r in shapes if r["timing"] == timing and r["cfg"] == "q16_16")
         # the kernel's row is the work one served step asks of it: both
         # conv launches for fixed_conv2d, one launch for the others
         b_ms, b_by = bound_ms(total("engine", "bytes"), total("engine", "ops"))
@@ -483,6 +515,173 @@ def phase_kernels(card: str) -> dict:
              card=card, engine_step=step_row, shapes=shapes,
              large_ms=total("large", "ms"), large_plain_ms=total("large", "plain_ms"),
              large_bound_ms=total("large", "bound_ms"))
+    return table
+
+
+def smallnet_work(B, H, W, N):
+    """(bytes, integer operations) of the whole net over B (H, W) images,
+    counted as conv_work and the dense case count them: each image word
+    and each of the 10 + K*N + N parameter words read once, each score
+    written once; 8 ops a conv word's four taps (four conv words a pooled
+    word, at both levels), 2 a dense multiply-accumulate."""
+    K = (H // 4) * (W // 4)
+    nbytes = 4 * (B * H * W + 10 + K * N + N + B * N)
+    return nbytes, B * (8 * 4 * ((H // 2) * (W // 2) + K) + 2 * K * N)
+
+
+def phase_smallnet_kernel(card: str) -> dict:
+    """fixed_smallnet, the served step in one launch, against its plain
+    version (the stages composed) on the card, word for word, in all five
+    configs at B = 1, 63, 64 and 16384 (and odd extents); its time, bound
+    and plain time in Q16.16 at each B, beside the composed four-launch
+    step (2 fixed_conv2d, fixed_dense, fixed_sigmoid) at the same B."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.fixed_conv import ops as C
+    from repro_torch.kernels.quant_matmul import ops as D
+
+    rng = np.random.default_rng(2028)
+    cases = [(1, 28, 28, 10), (63, 28, 28, 10), (ENGINE_BATCH, 28, 28, 10),
+             (LARGE_BATCH, 28, 28, 10), (3, 37, 53, 10), (2, 9, 8, 16), (5, 64, 64, 3)]
+    reset_launches()
+    max_err, n_checked, shapes = 0, 0, []
+    for cname, cfg in fxp.STANDARD_CONFIGS.items():
+        for B, H, W, N in cases:
+            K = (H // 4) * (W // 4)
+            args = [torch.from_numpy(random_words(rng, shape, cfg)).cuda()
+                    for shape in ((B, H, W), (4,), (1,), (4,), (1,), (K, N), (N,))]
+            got = C.fixed_smallnet(*args, cfg=cfg)
+            want = C.fixed_smallnet_plain(*args, cfg=cfg)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            expect(got.shape == want.shape and torch.equal(got, want),
+                   f"fixed_smallnet B={B} {H}x{W} N={N} {cname}: kernel differs from plain "
+                   f"(max |err| {err})")
+            max_err, n_checked = max(max_err, err), n_checked + 1
+            if cname != "q16_16" or (H, W) != (28, 28):
+                continue
+            x, c1w, c1b, c2w, c2b, dw, db = args
+
+            def composed():
+                y = C.fixed_conv2d(x, c1w, c1b, cfg=cfg, activation="plan", pool=True)
+                y = C.fixed_conv2d(y, c2w, c2b, cfg=cfg, activation="plan", pool=True)
+                return C.fixed_sigmoid(D.fixed_dense(y.reshape(B, -1), dw, db, cfg=cfg),
+                                       cfg=cfg)
+            expect(torch.equal(composed(), got), f"fixed_smallnet B={B}: the composed "
+                   "step differs")
+            reps = 200 if B <= ENGINE_BATCH else 20
+            nbytes, ops = smallnet_work(B, H, W, N)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            shapes.append({"case": f"B={B} (28,28) -> ({B},10)", "ms": device_ms(
+                lambda: C.fixed_smallnet(*args, cfg=cfg), reps),
+                "plain_ms": device_ms(lambda: C.fixed_smallnet_plain(*args, cfg=cfg),
+                                      max(reps // 10, 5)),
+                "composed_4_launch_ms": device_ms(composed, reps),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bytes": nbytes, "ops": ops})
+    # below 4x4; K != 49; past the shared memory (the launcher refuses it)
+    for bad in ({"shape": (2, 3, 28)}, {"dw": (48, 10)},
+                {"shape": (1, 200, 200), "dw": (2500, 10)}):
+        shape = bad.get("shape", (2, 28, 28))
+        args = [torch.zeros(sh, dtype=torch.int32, device="cuda")
+                for sh in (shape, (4,), (1,), (4,), (1,), bad.get("dw", (49, 10)), (10,))]
+        try:
+            C.fixed_smallnet(*args)
+        except ValueError:
+            continue
+        raise SmokeError(f"fixed_smallnet {bad}: expected ValueError")
+    eng = next(r for r in shapes if r["case"].startswith(f"B={ENGINE_BATCH} "))
+    table = {"name": "fixed_smallnet", "route": "cuda", "source": KERNELS["fixed_smallnet"][0],
+             "replaces": KERNELS["fixed_smallnet"][1], "launches": 0, "max_abs_err": max_err,
+             **{k: eng[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("kernel", name="fixed_smallnet", checked=n_checked, max_abs_err=max_err,
+         launches_in_this_phase=launches().get("fixed_smallnet", 0), card=card,
+         engine_step=table, shapes=shapes,
+         library="none: no PyTorch call computes the Qm.n net")
+    return table
+
+
+def window_head_work(Nw, h, w, K, N):
+    """(bytes, integer operations) of the window head: the four (h, w)
+    maps, the offsets, w and b read once, the scores written once; 2 ops a
+    dense multiply-accumulate."""
+    return 4 * (4 * h * w + 2 * Nw + K * N + N + Nw * N), 2 * Nw * K * N
+
+
+def phase_window_head_kernel(card: str) -> dict:
+    """fixed_window_head against its plain version (stack, gather, dense,
+    PLAN in torch ops) on the card, word for word, in all five configs at
+    112x112, 56x84 and 1080x1920 frames, N = 10 and 16; in Q16.16 at
+    112x112 and 1080x1920 its time, bound and plain time beside the
+    four-op head the sweep took before (torch.stack, the index gather, the
+    fixed_dense and fixed_sigmoid kernels)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.fixed_conv import ops as C
+    from repro_torch.kernels.quant_matmul import ops as D
+    from repro_torch.streaming import FcnSweep
+    from repro_torch.streaming.fcn_sweep import _window_gather, _window_origins
+
+    rng = np.random.default_rng(2029)
+    dev = torch.device("cuda")
+    timed = {(112, 112): "sweep frame 112x112", CAMERA: "camera frame 1080x1920"}
+    reset_launches()
+    max_err, n_checked, shapes = 0, 0, []
+    for cname, cfg in fxp.STANDARD_CONFIGS.items():
+        for H, W in ((112, 112), (56, 84), CAMERA):
+            h, w = H // 4, W // 4
+            pos = tuple(FcnSweep(stride=SWEEP_STRIDE).positions((H, W)))
+            gy, gx = _window_origins(28, pos, (h, w), dev)
+            quad = torch.from_numpy(random_words(rng, (4, h, w), cfg)).cuda()
+            for N in (10, 16):
+                wd = torch.from_numpy(random_words(rng, (49, N), cfg)).cuda()
+                bd = torch.from_numpy(random_words(rng, (N,), cfg)).cuda()
+                got = D.fixed_window_head(quad, gy, gx, wd, bd, cfg=cfg)
+                want = D.fixed_window_head_plain(quad, gy, gx, wd, bd, cfg=cfg)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                expect(got.shape == want.shape == (len(pos), N) and torch.equal(got, want),
+                       f"fixed_window_head {H}x{W} N={N} {cname}: kernel differs from "
+                       f"plain (max |err| {err})")
+                max_err, n_checked = max(max_err, err), n_checked + 1
+                if cname != "q16_16" or N != 10 or (H, W) not in timed:
+                    continue
+                maps = [quad[k] for k in range(4)]
+                gather = _window_gather(28, pos, (h, w), dev)
+
+                def four_op():
+                    feats = torch.stack(maps).reshape(-1)[gather]
+                    return C.fixed_sigmoid(D.fixed_dense(feats, wd, bd, cfg=cfg), cfg=cfg)
+                expect(torch.equal(four_op(), got), f"fixed_window_head {H}x{W}: the four-op "
+                       "head differs")
+                nbytes, ops = window_head_work(len(pos), h, w, 49, N)
+                b_ms, b_by = bound_ms(nbytes, ops)
+                shapes.append({"case": timed[(H, W)], "windows": len(pos), "ms": device_ms(
+                    lambda: D.fixed_window_head(maps, gy, gx, wd, bd, cfg=cfg), 50),
+                    "plain_ms": device_ms(
+                        lambda: D.fixed_window_head_plain(maps, gy, gx, wd, bd, cfg=cfg), 5),
+                    "four_op_head_ms": device_ms(four_op, 50),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bytes": nbytes, "ops": ops})
+    try:                                       # N > 16 has no kernel: it raises
+        D.fixed_window_head(quad, gy, gx, torch.zeros((49, 17), dtype=torch.int32, device=dev),
+                            torch.zeros(17, dtype=torch.int32, device=dev))
+        raise SmokeError("fixed_window_head N=17: expected ValueError")
+    except ValueError:
+        pass
+    first = shapes[0]                                      # 112x112, Q16.16
+    table = {"name": "fixed_window_head", "route": "cuda",
+             "source": KERNELS["fixed_window_head"][0],
+             "replaces": KERNELS["fixed_window_head"][1], "launches": 0, "max_abs_err": max_err,
+             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("kernel", name="fixed_window_head", checked=n_checked, max_abs_err=max_err,
+         launches_in_this_phase=launches().get("fixed_window_head", 0), card=card,
+         sweep_frame=table, shapes=shapes,
+         library="none: no PyTorch call computes the Qm.n head")
     return table
 
 
@@ -775,6 +974,19 @@ def phase_float_kernels(card: str) -> dict:
                             lambda: conv2d_plain(x, w, b, stride=2, activation="plan"), None,
                             conv_float_work(1, 512, 512, 1, 2, 2, 16, 256, 256, "plan"),
                             F32_FLOPS_PER_S, 50, "large"))
+
+        # the same frame pre-activation, beside F.conv2d (SAME at stride 2
+        # pads nothing here: (256 - 1) * 2 + 2 == 512)
+        def lib_conv_s2():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, stride=2)
+            return y.permute(0, 2, 3, 1)
+        expect(torch.allclose(lib_conv_s2(), conv2d(x, w, b, stride=2), rtol=FLOAT_TOL,
+                              atol=FLOAT_TOL), "conv2d 512x512 stride 2: F.conv2d differs")
+        shapes.append(timed("frame (1,512,512,1)x(2,2,1,16) stride 2 pre-activation",
+                            lambda: conv2d(x, w, b, stride=2),
+                            lambda: conv2d_plain(x, w, b, stride=2), lib_conv_s2,
+                            conv_float_work(1, 512, 512, 1, 2, 2, 16, 256, 256, None),
+                            F32_FLOPS_PER_S, 50, "large, no activation"))
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
     conv_row = row("conv2d", shapes, max_err, n_checked,
@@ -1132,7 +1344,7 @@ def phase_sweep(card: str) -> list[dict]:
     from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler
 
     params = fixture_params()
-    mega = {"frame_trunk": 1, "fixed_dense": 1, "fixed_sigmoid": 1}
+    mega = {"frame_trunk": 1, "fixed_window_head": 1}
     composed = {"fixed_conv2d": 20, "fixed_maxpool2x2": 2, "fixed_sigmoid": 12,
                 "fixed_dense": 1}
     runs, rates = [], {}
@@ -1382,13 +1594,15 @@ def run(card: str, kind: str, count: int) -> None:
             for k, v in report.items()}
     emit("build", seconds=_build.build_seconds, sources=list(_build.SOURCES),
          ptxas=regs)
-    for name in ("quant_matmul", "frame_trunk"):      # the two redesigned sources
+    for name in ("quant_matmul", "frame_trunk", "fixed_dense", "fixed_net"):   # redesigned
         emit("ptxas", source=f"csrc/{name}.cu", kernels=ptxas_kernels(report[name]),
              sass=sass_counts(_build.library_path(name)))
 
     phase_golden()
     phase_sweep_golden()
     table = phase_kernels(card)
+    table["fixed_smallnet"] = phase_smallnet_kernel(card)
+    table["fixed_window_head"] = phase_window_head_kernel(card)
     table["frame_trunk"] = phase_frame_trunk_kernel(card)
     table.update(phase_float_kernels(card))
 
@@ -1398,22 +1612,27 @@ def run(card: str, kind: str, count: int) -> None:
 
     @dataclasses.dataclass(frozen=True)
     class ComposedStages(B.FixedCudaBackend):
-        """fixed_cuda with the stage composed of two launches (conv+PLAN,
-        then the max pool), as the frame sweep composes its stages."""
+        """fixed_cuda with the net composed of its stages (no whole-net
+        launch) and each stage of two launches (conv+PLAN, then the max
+        pool), as the frame sweep composes its stages."""
         name: str = "fixed_cuda_composed"
+
+        def net_scores(self, images, p):
+            return None
 
         def fused_conv_act_pool(self, x, w, b):
             return self.maxpool2x2(self.fused_conv_act(x, w, b))
 
     params = seeded_params(0)
     images, _ = synth_mnist.make_dataset(N_REQUESTS, seed=1)
-    served = {"fixed_conv2d": 2, "fixed_dense": 1, "fixed_sigmoid": 1}
+    served = {"fixed_smallnet": 1}
+    composed = {"fixed_conv2d": 2, "fixed_maxpool2x2": 2, "fixed_dense": 1, "fixed_sigmoid": 1}
     runs = [
         serve_once(params, images, "fixed_cuda", "serve q16_16", card, served),
         serve_once(params, images, B.FixedCudaBackend(cfg=fxp.Q8_8),
                    "serve q8_8", card, served),
         serve_once(params, images[:256], ComposedStages(), "composed q16_16", card,
-                   dict(served, fixed_maxpool2x2=2)),
+                   composed),
     ]
     # the float and int8 backends, each held to its plain counterpart on the CPU
     float_step = {"conv2d": 2, "maxpool2d": 2}

@@ -10,10 +10,11 @@ a backend supplies the five layer primitives
     quantize_params(params) float params -> backend-native parameters
 
 plus the hooks `ingest`, `flatten`, `fused_conv_act`, `fused_conv_act_pool`,
-`accumulate`, `mask_conv_weight`, `frame_trunk`, `prepare_params` and
-`params_native`.  Parameters are a dict of dicts of tensors with the
-reference's layouts: conv weights (2,2,1,1) HWIO, conv bias (1,), dense
-(49,10) and (10,); the `int8` backend's weights are `ptq.QuantTensor`s.
+`accumulate`, `mask_conv_weight`, `net_scores`, `frame_trunk`,
+`window_head`, `prepare_params` and `params_native`.  Parameters are a
+dict of dicts of tensors with the reference's layouts: conv weights
+(2,2,1,1) HWIO, conv bias (1,), dense (49,10) and (10,); the `int8`
+backend's weights are `ptq.QuantTensor`s.
 The base class is the float `ref` backend; float activations are NHWC
 (B,H,W,1) float32, the fixed backends' (B,H,W) int32 words.
 
@@ -36,9 +37,13 @@ Registered backends (the reference's name in brackets where it differs):
                 kernels, on whatever device the tensors live on
     fixed_cuda  [fixed_pallas] the same words through the hand-written CUDA
                 kernels (`kernels/fixed_conv`, `kernels/quant_matmul`,
-                `kernels/frame_trunk`): the fused conv -> PLAN -> maxpool
-                stage is one launch, then the dense launch and the PLAN
-                sigmoid launch; a whole frame's trunk is one launch
+                `kernels/frame_trunk`): a served step is one whole-net
+                launch (`net_scores`) where the kernel takes the images
+                (28x28, and other sizes up to about 170x170 words); other
+                images take the stages, the fused conv -> PLAN -> maxpool
+                stage one launch, then the dense launch and the PLAN
+                sigmoid launch; a whole
+                frame's trunk is one launch, and its window head one more
     int8        post-training int8: dequant-on-use plain convs, the PLAN
                 sigmoid, and the dense layer as a true int8 MAC
                 (activations quantized per tensor, weights per channel)
@@ -55,7 +60,10 @@ return None, as the reference's `FixedBackend` does, where the trunk
 cannot tile: a batch other than 1, an extent that is not a multiple of 4
 or is below 4, or a saturating config.  The float and int8 backends have
 no `frame_trunk`.  That is routing to the composed stages, not a fallback:
-on valid geometry a build or launch failure raises.
+on valid geometry a build or launch failure raises.  The same holds for
+the two hooks only `fixed_cuda` has, `net_scores` (the whole net, for
+the images its kernel takes) and `window_head` (the sweep's head): every
+other backend returns None and composes its stages.
 """
 from __future__ import annotations
 
@@ -71,12 +79,13 @@ from repro_torch.kernels.conv2d.ops import conv2d, conv2d_plain
 from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain,
                                                 fixed_maxpool2x2,
                                                 fixed_maxpool2x2_plain,
-                                                fixed_sigmoid)
+                                                fixed_sigmoid, fixed_smallnet,
+                                                smallnet_fits)
 from repro_torch.kernels.frame_trunk.ops import (frame_trunk_quad,
                                                  frame_trunk_quad_plain)
 from repro_torch.kernels.maxpool2d.ops import maxpool2d, maxpool2d_plain
 from repro_torch.kernels.quant_matmul.ops import (fixed_dense, fixed_dense_plain,
-                                                  quant_matmul)
+                                                  fixed_window_head, quant_matmul)
 from repro_torch.kernels.sigmoid_pla.ops import sigmoid_pla
 
 
@@ -185,10 +194,23 @@ class Backend:
         launch."""
         return self.maxpool2x2(self.fused_conv_act(x, w, b))
 
+    def net_scores(self, images, p):
+        """The whole forward in one step: (B,H,W,1) float images ->
+        backend-native class scores (B,10), or None to compose the
+        stages."""
+        return None
+
     def frame_trunk(self, frames, p):
         """Whole-frame trunk fast path over a (1,H,W,1) frame batch: the
         level-2 role-map quad (I, B, R, C), each (1, H/4, W/4), or None to
         run the composed stages."""
+        return None
+
+    def window_head(self, maps, gy, gx, p):
+        """The frame sweep's head in one step: the four (H/4, W/4) role maps
+        and the windows' pooled offsets gy, gx (Nw,) int32 -> (Nw, 10)
+        scores with the output activation, or None to compose stack,
+        gather, dense and activation."""
         return None
 
 
@@ -324,12 +346,37 @@ register_backend("fixed", FixedBackend())
 
 @dataclasses.dataclass(frozen=True)
 class FixedCudaBackend(FixedBackend):
-    """The Qm.n datapath through the CUDA kernels: per served step, two fused
-    conv -> PLAN -> maxpool launches, one dense launch and one PLAN sigmoid
-    launch; per swept frame, one `frame_trunk` launch.  Same words as
-    `fixed` (it reuses its `quantize_params`, `ingest` and the
-    `frame_trunk` routing)."""
+    """The Qm.n datapath through the CUDA kernels: per served step, one
+    whole-net launch (images the kernel takes, 28x28 among them); per swept
+    frame, one `frame_trunk` launch and one window-head launch.  Other
+    images take two fused conv -> PLAN -> maxpool launches, one dense
+    launch and one PLAN sigmoid launch.
+    Same words as `fixed` (it reuses its `quantize_params`, `ingest` and
+    the `frame_trunk` routing)."""
     name: str = "fixed_cuda"
+
+    def net_scores(self, images, p):
+        """The `fixed_smallnet` kernel's scores for a (B,H,W,1) batch whose
+        (H/4)(W/4) pooled map is the dense layer's input and, on the card,
+        whose images the kernel takes (`smallnet_fits`: 4x4 up to about
+        170x170 words); None for any other batch, which composes the
+        stages.  A batch the kernel takes never composes: a build or launch
+        failure raises."""
+        if images.ndim != 4 or images.shape[3] != 1:
+            return None
+        H, W = images.shape[1:3]
+        K, N = p["dense"]["w"].shape
+        if (H // 4) * (W // 4) != K or (images.is_cuda and not smallnet_fits(H, W, N)):
+            return None
+        return fixed_smallnet(self.ingest(images), p["conv1"]["w"], p["conv1"]["b"],
+                              p["conv2"]["w"], p["conv2"]["b"], p["dense"]["w"],
+                              p["dense"]["b"], cfg=self.cfg)
+
+    def window_head(self, maps, gy, gx, p):
+        # one launch: the features read straight from the maps, the dense
+        # layer and the PLAN (csrc/fixed_dense.cu)
+        return fixed_window_head(maps, gy, gx, p["dense"]["w"], p["dense"]["b"],
+                                 cfg=self.cfg)
 
     def conv2x2_same(self, x, w, b):
         return fixed_conv2d(x, w.reshape(4), b, cfg=self.cfg)

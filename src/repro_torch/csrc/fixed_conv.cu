@@ -21,9 +21,13 @@
 //     microseconds), far above either bound.
 //   large shapes: B=16384 conv 28x28->14x14 moves 64 MB (19 us) against
 //     103 Mops (6 us): bytes bound, as is a 512x512 frame (1.3 MB, 0.4 us).
-// The design is plain because at the served shapes no layout or tiling
-// change can beat the launch; fusing the four launches of a step, or a CUDA
-// graph, is the lever, and that is later work.
+// These kernels now serve the composed stages (and the frame sweep's
+// composed cascade): at the served shapes each launch costs its launch
+// latency, so a served step on fixed_cuda no longer takes them.  It is one
+// launch of csrc/fixed_net.cu, the whole net per image in shared memory
+// (bound at B=64: 60 ns of bytes; at B=16384: 51.4 MB, 15.4 us), where
+// these kernels take four launches and move every pooled map through
+// device memory.
 #include <cuda_runtime.h>
 
 #include <cstdint>

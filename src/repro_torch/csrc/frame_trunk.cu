@@ -43,16 +43,11 @@
 // _sweep_stage's order), equals wrap(sum of its products + bias), with the
 // products summed mod 2^32 in any order and grouping.
 //
-// Arithmetic: the three wraparound STANDARD_CONFIGS (Q16.16, Q16.16
-// truncating, Q8.8) have kernels specialised at compile time on
-// (frac_bits, total_bits, round_nearest).  There a product is one 64-bit
-// multiply-add (mad.wide.s32), a*b + 2^(f-1) when rounding (floor((p +
-// 2^(f-1)) / 2^f) is p >> f plus bit f-1 of p), and one funnel shift for
-// the low 32 bits of the shifted product; the per-product wrap is dropped (only the sum's
-// wrap counts, as above), and there is no saturation branch.  PLAN's
-// rounding shifts are (x + 2^(k-1)) >> k, exact wherever that branch is
-// taken.  Any other wraparound config runs the generic kernel, with the
-// runtime FixedCfg and the word functions of fixed_word.cuh.
+// Arithmetic: Word<> of fixed_format.cuh.  The three wraparound
+// STANDARD_CONFIGS (Q16.16, Q16.16 truncating, Q8.8) have kernels
+// specialised at compile time (one IMAD.WIDE a product, no per-product
+// wrap, PLAN by selects); any other wraparound config runs the generic
+// kernel, with the runtime FixedCfg.
 //
 // Bound on an H100 SXM (3.35 TB/s; int32 on the CUDA cores 16.7 Tops/s):
 // the function reads each input word once and writes each output word
@@ -68,95 +63,12 @@
 
 #include <cstdint>
 
-#include "fixed_word.cuh"
+#include "fixed_format.cuh"
 
 namespace {
 
 constexpr int kHalo = 3;
 constexpr int kMaxThreads = 384;
-
-__device__ __forceinline__ int32_t max4(int32_t a, int32_t b, int32_t c,
-                                        int32_t d) {
-  return max(max(a, b), max(c, d));
-}
-
-// x >= bound ? a : b as a select: a branch would split a warp whose words
-// fall on different sides of the bound
-__device__ __forceinline__ int32_t select_ge(int32_t x, int32_t bound, int32_t a,
-                                             int32_t b) {
-  int32_t r;
-  asm("{\n.reg .pred p;\nsetp.ge.s32 p, %1, %2;\nselp.b32 %0, %3, %4, p;\n}"
-      : "=r"(r)
-      : "r"(x), "r"(bound), "r"(a), "r"(b));
-  return r;
-}
-
-// The word arithmetic of one wraparound format: compile-time for
-// kFrac >= 0, the runtime FixedCfg (fixed_word.cuh) for kFrac < 0.
-template <int kFrac, int kTotal, int kRound>
-struct Word {
-  FixedCfg c;
-  long long half;   // 2^(frac_bits-1) when rounding, else 0 (see `make`)
-
-  // `half` is hidden from the optimiser, so that it stays in a register
-  // pair and every product is one IMAD.WIDE with it as the addend: as a
-  // constant it becomes a separate 64-bit add (IADD3 + IMAD.X)
-  __device__ __forceinline__ static Word make(const FixedCfg& cfg) {
-    long long h = 0;
-    if constexpr (kFrac > 0 && kRound) h = 1ll << (kFrac - 1);
-    asm volatile("" : "+l"(h));
-    return Word{cfg, h};
-  }
-
-  // a product word, correct mod 2^total_bits (all a conv word needs)
-  __device__ __forceinline__ uint32_t mul(int32_t a, int32_t b) const {
-    if constexpr (kFrac < 0) {
-      return (uint32_t)fixed_mul(a, b, c);
-    } else {
-      // signed: a plain `(long long)a * b + h` compiles to an unsigned wide
-      // multiply with sign corrections
-      long long p;
-      asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(p) : "r"(a), "r"(b), "l"(half));
-      return __funnelshift_r((uint32_t)p, (uint32_t)((unsigned long long)p >> 32),
-                             kFrac);
-    }
-  }
-
-  // a conv word: the tap products' sum mod 2^32 plus the bias, wrapped
-  __device__ __forceinline__ int32_t conv(uint32_t sum, int32_t bias) const {
-    if constexpr (kFrac < 0) {
-      return fixed_add((int32_t)sum, bias, c);
-    } else {
-      const int32_t s = (int32_t)(sum + (uint32_t)bias);
-      if constexpr (kTotal >= 32) return s;
-      else return ((int32_t)((uint32_t)s << (32 - kTotal))) >> (32 - kTotal);
-    }
-  }
-
-  template <int k>
-  __device__ __forceinline__ static int32_t shr(int32_t x) {
-    if constexpr (kRound) return (int32_t)((uint32_t)x + (1u << (k - 1))) >> k;
-    else return x >> k;
-  }
-
-  __device__ __forceinline__ int32_t plan(int32_t x) const {
-    if constexpr (kFrac < 0) {
-      return plan_sigmoid(x, c);
-    } else {
-      // every segment, then selects
-      const int32_t ax = x < 0 ? (int32_t)(0u - (uint32_t)x) : x;
-      int32_t y = select_ge(ax, c.c1, add32(shr<3>(ax), c.c0625), add32(shr<2>(ax), c.c05));
-      y = select_ge(ax, c.c2375, add32(shr<5>(ax), c.c084375), y);
-      y = select_ge(ax, c.c5, c.one, y);
-      return select_ge(x, 0, y, (int32_t)((uint32_t)c.one - (uint32_t)y));
-    }
-  }
-
-  // PLAN of a conv word
-  __device__ __forceinline__ int32_t act(uint32_t sum, int32_t bias) const {
-    return plan(conv(sum, bias));
-  }
-};
 
 template <int kFrac, int kTotal, int kRound>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -320,18 +232,11 @@ extern "C" int frame_trunk_launch(int device, const int32_t* x,
                                   FixedCfg cfg, void* stream) {
   cudaSetDevice(device);
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (cfg.saturate) {
-    e = cudaErrorInvalidValue;              // the wrapper rejects these first
-  } else if (cfg.frac_bits == 16 && cfg.total_bits == 32 && cfg.round_nearest) {
-    e = launch<16, 32, 1>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
-  } else if (cfg.frac_bits == 16 && cfg.total_bits == 32) {
-    e = launch<16, 32, 0>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
-  } else if (cfg.frac_bits == 8 && cfg.total_bits == 16 && cfg.round_nearest) {
-    e = launch<8, 16, 1>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
-  } else {
-    e = launch<-1, -1, -1>(x, w1, b1, w2, b2, out, H, W, th, tw, cfg, s);
-  }
-  return (int)e;
+  if (cfg.saturate) return (int)cudaErrorInvalidValue;   // the wrapper rejects these first
+  return (int)dispatch_format(cfg, [&](auto f) {
+    using Fm = decltype(f);
+    return launch<Fm::kFrac, Fm::kTotal, Fm::kRound>(x, w1, b1, w2, b2, out, H, W, th, tw,
+                                                     cfg, s);
+  });
 }
 

@@ -34,7 +34,7 @@ from repro_torch.core import fixed_point as fxp
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fixed_conv", "fixed_dense", "frame_trunk", "float_kernels",
+SOURCES = ("fixed_conv", "fixed_dense", "fixed_net", "frame_trunk", "float_kernels",
            "quant_matmul")                                 # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,7 +59,8 @@ def fixed_cfg(cfg: fxp.FixedPointConfig) -> FixedCfg:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signature of every launcher (all return cudaGetLastError() as int)
+# C signature of every launcher (all return cudaGetLastError() as int, or
+# SHAPE_UNSUPPORTED) and of the shape queries beside them (an int)
 SIGNATURES = {
     "fixed_conv": {
         "fixed_conv2d_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -69,6 +70,12 @@ SIGNATURES = {
     },
     "fixed_dense": {
         "fixed_dense_launch": [_I, _P, _P, _P, _P, _I, _I, _I, FixedCfg, _P],
+        "fixed_dense_rows_route": [_I, _I],
+        "fixed_window_head_launch": [_I] + [_P] * 9 + [_I] * 5 + [FixedCfg, _P],
+    },
+    "fixed_net": {
+        "fixed_smallnet_launch": [_I] + [_P] * 8 + [_I, _I, _I, _I, FixedCfg, _P],
+        "fixed_smallnet_fits": [_I, _I, _I],
     },
     "frame_trunk": {
         "frame_trunk_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -168,8 +175,14 @@ def build_report() -> dict[str, str]:
         return dict(_logs)
 
 
+SHAPE_UNSUPPORTED = -1       # csrc/launch_error.cuh kShapeUnsupported
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error (the launch never ran)."""
+    """Raise if a launcher returned a CUDA error (the launch never ran):
+    ValueError for a shape its kernel cannot take, RuntimeError else."""
+    if rc == SHAPE_UNSUPPORTED:
+        raise ValueError(f"{what}: the kernel cannot take this shape")
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc} ({msg})")

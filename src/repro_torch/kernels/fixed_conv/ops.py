@@ -12,13 +12,22 @@ CUDA tensors (see `kernels/_launch.py`):
                     output stride (only the kept words are computed)
   fixed_maxpool2x2  (B,H,W) -> (B,H//2,W//2) comparator tree, odd cropped
   fixed_sigmoid     elementwise PLAN sigmoid over any shape
+  fixed_smallnet    the whole Qm.n smallNet forward, (B,H,W) ingested words
+                    -> (B,N) PLAN'd class-score words, in one launch of
+                    `csrc/fixed_net.cu` (the served step on `fixed_cuda`);
+                    its plain version composes the stages above and the
+                    dense layer
 
 The reference wrappers budget TPU VMEM (`fixed_conv/ops.py:_check_vmem`)
-because a Pallas grid step holds a whole padded image.  These kernels keep
-no image resident (one thread per output word, SAME padding read as zero
-taps), so there is no such limit to check.
+because a Pallas grid step holds a whole padded image.  The per-stage
+kernels keep no image resident (one thread per output word, SAME padding
+read as zero taps), so there is no such limit to check; `fixed_smallnet`
+holds images and their pooled maps in shared memory, which bounds the image
+(`smallnet_fits` asks the kernel's launcher).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.core import fixed_point as fxp
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_words, stream_of
+from repro_torch.kernels.quant_matmul.ops import fixed_dense_plain
 
 _ACTIVATIONS = (None, "plan")
 _TAPS = ((0, 0), (0, 1), (1, 0), (1, 1))   # (dh, dw) per 2x2 kernel tap
@@ -144,4 +154,70 @@ def fixed_sigmoid(x: torch.Tensor, *,
                                   _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, "fixed_sigmoid")
     LAUNCHES["fixed_sigmoid"] += 1
+    return out
+
+
+# -- the whole net ------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def smallnet_fits(H: int, W: int, N: int) -> bool:
+    """Whether the whole-net kernel takes (H, W) images and N classes, as
+    its launcher decides it (the library is built on first use): at least
+    4x4 words (a dense input), and an image group's maps and the dense
+    words within the shared memory (up to about 170x170 words with N =
+    10)."""
+    return bool(_build.library("fixed_net").fixed_smallnet_fits(H, W, N))
+
+
+def _smallnet_args(x, c1w, c1b, c2w, c2b, dw, db) -> None:
+    require_words("fixed_smallnet x", x, ndim=3)
+    for name, t, n in (("c1w", c1w, 4), ("c1b", c1b, 1), ("c2w", c2w, 4), ("c2b", c2b, 1)):
+        require_words(f"fixed_smallnet {name}", t, numel=n)
+    require_words("fixed_smallnet dw", dw, ndim=2)
+    _, H, W = x.shape
+    K, N = dw.shape
+    if K != (H // 4) * (W // 4):
+        raise ValueError(f"fixed_smallnet: dw {tuple(dw.shape)} does not take the "
+                         f"{H // 4}x{W // 4} pooled map of {H}x{W} images")
+    require_words("fixed_smallnet db", db, numel=N)
+
+
+def fixed_smallnet_plain(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
+                         c2w: torch.Tensor, c2b: torch.Tensor, dw: torch.Tensor,
+                         db: torch.Tensor, *,
+                         cfg: fxp.FixedPointConfig = fxp.Q16_16) -> torch.Tensor:
+    """conv + PLAN + pool twice, flatten, the dense layer, PLAN: the plain
+    stages composed."""
+    y = fixed_conv2d_plain(x, c1w.reshape(4), c1b, cfg=cfg, activation="plan", pool=True)
+    y = fixed_conv2d_plain(y, c2w.reshape(4), c2b, cfg=cfg, activation="plan", pool=True)
+    return fixed_sigmoid_plain(fixed_dense_plain(y.reshape(y.shape[0], -1), dw, db, cfg=cfg),
+                               cfg=cfg)
+
+
+def fixed_smallnet(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
+                   c2w: torch.Tensor, c2b: torch.Tensor, dw: torch.Tensor,
+                   db: torch.Tensor, *,
+                   cfg: fxp.FixedPointConfig = fxp.Q16_16) -> torch.Tensor:
+    """The whole smallNet forward: x (B,H,W) ingested int32 words, conv
+    taps c1w, c2w (4 words in row-major (dh, dw) order, e.g. the (2,2,1,1)
+    params), conv biases c1b, c2b (1 word), dense dw ((H/4)(W/4), N) and db
+    (N,) -> (B,N) PLAN'd class-score words, as the per-stage route computes
+    them.  The kernel takes the images `smallnet_fits` allows and raises
+    ValueError for any other; the plain version takes any."""
+    _smallnet_args(x, c1w, c1b, c2w, c2b, dw, db)
+    if not on_cuda(x, c1w, c1b, c2w, c2b, dw, db):
+        return fixed_smallnet_plain(x, c1w, c1b, c2w, c2b, dw, db, cfg=cfg)
+    B, H, W = x.shape
+    N = dw.shape[1]
+    out = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("fixed_net")
+    dev, stream = stream_of(x)
+    rc = lib.fixed_smallnet_launch(dev, x.data_ptr(), c1w.data_ptr(), c1b.data_ptr(),
+                                   c2w.data_ptr(), c2b.data_ptr(), dw.data_ptr(),
+                                   db.data_ptr(), out.data_ptr(), B, H, W, N,
+                                   _build.fixed_cfg(cfg), stream)
+    _build.check(lib, rc, f"fixed_smallnet {H}x{W} images, {N} classes")
+    LAUNCHES["fixed_smallnet"] += 1
     return out

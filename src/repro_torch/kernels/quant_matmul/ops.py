@@ -4,10 +4,22 @@ Port of `repro.kernels.quant_matmul` (`ops.py` wrappers, `kernel.py`,
 `ref.py`).  Each wrapper checks its tensors, sends CPU tensors to its
 plain version and launches its kernel for CUDA tensors:
 
-  fixed_dense   the Qm.n dense layer (`fixed_matmul_pallas`), kernel in
-                `csrc/fixed_dense.cu`; the reference pads the batch to its
-                Pallas block and budgets VMEM, but the kernel here is one
-                thread per output word, so neither carries over
+  fixed_dense   the Qm.n dense layer (`fixed_matmul_pallas`), kernels in
+                `csrc/fixed_dense.cu`; its launcher picks "rows" (four
+                threads a row, each holding all N <= 16 sums, the block's
+                rows staged in shared memory) or "generic" (one thread per
+                output word, for N > 16 or rows too long for the shared
+                memory), and `fixed_dense_route` asks it which; the
+                reference pads the batch to its Pallas block and budgets
+                VMEM, but both kernels mask the ragged last block
+                themselves
+  fixed_window_head
+                the frame sweep's window head in one launch of
+                `csrc/fixed_dense.cu` (the rows route's shapes only):
+                each window's k x k features read straight from the four
+                role maps, the dense layer, the PLAN; its plain version is the composed head (stack the
+                maps, gather every window's features, `fixed_dense_plain`,
+                the PLAN)
   quant_matmul  int8 x int8 -> exact int32 sum -> float32 dequant
                 (`quant_matmul_pallas`), two kernels in
                 `csrc/quant_matmul.cu`, picked by `quant_matmul_route`:
@@ -18,6 +30,8 @@ plain version and launches its kernel for CUDA tensors:
                 themselves, so no padded copy is made
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -33,10 +47,18 @@ def fixed_dense_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return fxp.fixed_add(fxp.fixed_matmul(x, w, cfg), b.reshape(1, -1), cfg)
 
 
+def fixed_dense_route(K: int, N: int) -> str:
+    """The kernel a CUDA `fixed_dense` call of (K, N) takes, as its launcher
+    decides it (the library is built on first use): "rows" where a thread
+    can hold the row's N <= 16 sums and the block's rows fit the shared
+    memory (K up to about 700), "generic" elsewhere."""
+    return "rows" if _build.library("fixed_dense").fixed_dense_rows_route(K, N) else "generic"
+
+
 def fixed_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                 *, cfg: fxp.FixedPointConfig = fxp.Q16_16) -> torch.Tensor:
     """Fixed-point dense layer: x (M,K), w (K,N), b (N,) or None, all int32
-    Qm.n words -> (M,N) int32."""
+    Qm.n words -> (M,N) int32, on the kernel `fixed_dense_route` names."""
     require_words("fixed_dense x", x, ndim=2)
     require_words("fixed_dense w", w, ndim=2)
     M, K = x.shape
@@ -54,10 +76,95 @@ def fixed_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     lib = _build.library("fixed_dense")
     dev, stream = stream_of(x)
     rc = lib.fixed_dense_launch(dev, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), M, K, N, _build.fixed_cfg(cfg),
-                                stream)
+                                out.data_ptr(), M, K, N, _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, "fixed_dense")
     LAUNCHES["fixed_dense"] += 1
+    return out
+
+
+def window_gather_index(gy: torch.Tensor, gx: torch.Tensor, k: int,
+                        map_shape: tuple[int, int]) -> torch.Tensor:
+    """Flat indices, into the stacked (4, h, w) role-map quad, of each
+    window's k x k features: (Nw, k*k) int64 on gy's device.  Feature (i, j)
+    of the window at pooled offset (gy, gx) comes from map is_last_row(i) +
+    2 * is_last_col(j) (interior, last_row, last_col, corner) at (gy+i,
+    gx+j)."""
+    h, w = map_shape
+    off = torch.arange(k, device=gy.device)
+    last = (off == k - 1).long()
+    role = last[:, None] + 2 * last[None, :]                      # (k, k)
+    rows = gy.long()[:, None, None] + off[None, :, None]          # (Nw, k, 1)
+    cols = gx.long()[:, None, None] + off[None, None, :]          # (Nw, 1, k)
+    idx = role[None] * (h * w) + rows * w + cols                  # (Nw, k, k)
+    return idx.reshape(gy.shape[0], k * k)
+
+
+def _window_head_args(quad, gy, gx, w, b):
+    """Check the window head's arguments; -> (the four maps, k, N)."""
+    maps = list(quad)
+    if len(maps) != 4:
+        raise ValueError(f"fixed_window_head: expected 4 role maps, got {len(maps)}")
+    for name, m in zip(("I", "B", "R", "C"), maps):
+        require_words(f"fixed_window_head map {name}", m, ndim=2)
+        if m.shape != maps[0].shape:
+            raise ValueError(f"fixed_window_head: map {name} {tuple(m.shape)}, "
+                             f"map I {tuple(maps[0].shape)}")
+    require_words("fixed_window_head gy", gy, ndim=1)
+    require_words("fixed_window_head gx", gx, numel=gy.shape[0])
+    require_words("fixed_window_head w", w, ndim=2)
+    K, N = w.shape
+    k = math.isqrt(K)
+    if k * k != K or k < 1:
+        raise ValueError(f"fixed_window_head: w {tuple(w.shape)} is not (k*k, N)")
+    require_words("fixed_window_head b", b, numel=N)
+    return maps, k, N
+
+
+def fixed_window_head_plain(quad, gy: torch.Tensor, gx: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor, *,
+                            cfg: fxp.FixedPointConfig = fxp.Q16_16) -> torch.Tensor:
+    """The composed head in torch ops: stack the four maps, gather every
+    window's features, the dense layer, the PLAN.  Raises ValueError for a
+    window past the maps."""
+    maps, k, _ = _window_head_args(quad, gy, gx, w, b)
+    h, w_ = maps[0].shape
+    if gy.numel() and (int(gy.min()) < 0 or int(gx.min()) < 0 or int(gy.max()) > h - k
+                       or int(gx.max()) > w_ - k):
+        raise ValueError(f"fixed_window_head: a window lies outside the {h}x{w_} maps")
+    idx = window_gather_index(gy, gx, k, tuple(maps[0].shape))
+    feats = torch.stack(maps).reshape(-1)[idx]                    # (Nw, k*k)
+    return fxp.fixed_sigmoid_plan(fixed_dense_plain(feats, w, b, cfg=cfg), cfg)
+
+
+def fixed_window_head(quad, gy: torch.Tensor, gx: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor, *,
+                      cfg: fxp.FixedPointConfig = fxp.Q16_16) -> torch.Tensor:
+    """The frame sweep's window head: the role-map quad (a (4, h, w) int32
+    tensor, or its four (h, w) maps [interior, last_row, last_col, corner]),
+    the windows' pooled-lattice offsets gy, gx (Nw,) int32, the dense w
+    (k*k, N) and b (N,) -> (Nw, N) PLAN'd score words.  The kernel takes
+    the rows route's shapes (`fixed_dense_route(k*k, N) == "rows"`: N <=
+    16), and raises ValueError for any other.  Every window must lie
+    inside the maps (gy + k <= h, gx + k <= w), as the sweep's positions
+    do: the plain version raises ValueError for one that does not, the
+    kernel stops with a CUDA error (a trap, as a device-side
+    assert), which poisons the CUDA context like any such fault."""
+    maps, k, N = _window_head_args(quad, gy, gx, w, b)
+    if not on_cuda(*maps, gy, gx, w, b):
+        return fixed_window_head_plain(maps, gy, gx, w, b, cfg=cfg)
+    Nw = gy.shape[0]
+    out = torch.empty((Nw, N), dtype=torch.int32, device=gy.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("fixed_dense")
+    dev, stream = stream_of(gy)
+    mh, mw = maps[0].shape
+    rc = lib.fixed_window_head_launch(dev, *(m.data_ptr() for m in maps), gy.data_ptr(),
+                                      gx.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), Nw, mh, mw, k, N,
+                                      _build.fixed_cfg(cfg), stream)
+    _build.check(lib, rc, f"fixed_window_head w {tuple(w.shape)}")
+    LAUNCHES["fixed_window_head"] += 1
     return out
 
 

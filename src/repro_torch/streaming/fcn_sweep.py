@@ -4,8 +4,8 @@ Port of `repro.streaming.fcn_sweep`.  `Tiler` re-convolves overlapping
 pixels up to 4x and extracts every 28x28 window on the host; this module
 instead runs smallNet's conv->sigmoid->pool->conv->sigmoid->pool trunk over
 the WHOLE HxW frame on the device, then scores every 28x28 window by
-gathering its 7x7 block of the pooled feature map and applying the 49->10
-dense head: one gather and one dense launch instead of N host-extracted
+reading its 7x7 block of the pooled feature maps and applying the 49->10
+dense head: one head launch on `fixed_cuda` instead of N host-extracted
 patches.
 
 Exactness contract: patch-wise scoring SAME-pads each 28x28 window (0
@@ -35,21 +35,25 @@ Edge/geometry contract (validated loudly):
   * saturating fixed-point configs are rejected (saturation is not
     associative).
 
-Trunk routes (`megakernel`): None uses the backend's one-launch
-`frame_trunk` (the `csrc/frame_trunk.cu` kernel on `fixed_cuda`, its plain
-version on `fixed`) where the frame's geometry allows it and the composed
-cascade elsewhere; True requires it and raises where there is none; False
-forces the composed cascade: 20 conv, 2 pool and 11 sigmoid launches per
-frame on `fixed_cuda`, against one `frame_trunk` launch.  All three give
-the same words.  The head is one dense and one sigmoid launch.  The float
-and int8 backends have no `frame_trunk` and always run the composed
-cascade: per frame 20 `conv2d`, 2 `maxpool2d` and 12 `sigmoid_pla` launches
-on `cuda_plan` (no `sigmoid_pla` on `cuda`), 1 `quant_matmul` on `int8`.
+Routes (`megakernel`): None uses the backend's one-launch `frame_trunk`
+(the `csrc/frame_trunk.cu` kernel on `fixed_cuda`, its plain version on
+`fixed`) where the frame's geometry allows it and the composed cascade
+elsewhere, and the backend's one-launch `window_head` for the head; True
+requires the trunk and raises where there is none; False forces the
+composed stages throughout: the cascade (20 conv, 2 pool and 11 sigmoid
+launches per frame on `fixed_cuda`) and the composed head (a stack of the
+four maps, one index gather, one dense and one sigmoid launch).  All three
+give the same words.  On `fixed_cuda` the default route is 2 launches a
+frame, `frame_trunk` and `fixed_window_head`.  The float and int8 backends
+have no `frame_trunk` or `window_head` and always run the composed stages:
+per frame 20 `conv2d`, 2 `maxpool2d` and 12 `sigmoid_pla` launches on
+`cuda_plan` (no `sigmoid_pla` on `cuda`), 1 `quant_matmul` on `int8`.
 
 The reference jits one program per geometry; here the sweep is a plain
-function on tensors, and only the window-gather indices are cached, per
-(geometry, device).  `make_trunk_fn`/`make_head_fn` come with the
-disaggregated serving path; `_head_scores` is the head they will share.
+function on tensors, and only the window offsets and gather indices are
+cached, per (geometry, device).  `make_trunk_fn`/`make_head_fn` come with
+the disaggregated serving path; `_head_scores` is the head they will
+share.
 """
 from __future__ import annotations
 
@@ -65,6 +69,7 @@ from repro_torch.core import smallnet
 from repro_torch.core.device import as_device_tensor
 from repro_torch.kernels.frame_trunk.ops import pool_mix as _pool_mix
 from repro_torch.kernels.frame_trunk.ops import pool_quadrants as _pool_quadrants
+from repro_torch.kernels.quant_matmul.ops import window_gather_index
 from repro_torch.streaming.sources import Frame
 from repro_torch.streaming.tiler import Tiler, tile_positions
 
@@ -176,25 +181,36 @@ def _check_saturation(be: B.Backend) -> None:
             "registered 'fixed'/'fixed_cuda' backends use wraparound mode.")
 
 
+def _origins(positions: tuple[tuple[int, int], ...]) -> tuple[list[int], list[int]]:
+    """The windows' offsets on the pooled lattice: (gy, gx) lists."""
+    return [y // _POOL for y, _ in positions], [x // _POOL for _, x in positions]
+
+
+@functools.lru_cache(maxsize=64)
+def _window_origins(patch: int, positions: tuple[tuple[int, int], ...],
+                    map_shape: tuple[int, int],
+                    device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The windows' pooled-lattice offsets, (gy, gx) int32 (Nw,) each on
+    `device`, for the one-launch head; every window lies inside the maps."""
+    k = patch // _POOL
+    gy, gx = _origins(positions)
+    h, w = map_shape
+    if positions and (min(gy + gx) < 0 or max(gy) + k > h or max(gx) + k > w):
+        raise ValueError(f"a window of {positions} lies outside the {h}x{w} pooled maps")
+    return (torch.tensor(gy, dtype=torch.int32, device=device),
+            torch.tensor(gx, dtype=torch.int32, device=device))
+
+
 @functools.lru_cache(maxsize=64)
 def _window_gather(patch: int, positions: tuple[tuple[int, int], ...],
                    map_shape: tuple[int, int], device: torch.device) -> torch.Tensor:
     """Gather indices for scoring `positions` from the stacked (4, h, w)
-    role-map quad, flattened: (Nw, k*k) int64 on `device`.  Feature (i, j)
-    of a window (k = patch/4) comes from map `is_last_row(i) +
-    2 * is_last_col(j)` (interior, last_row, last_col, corner), at the
-    window's pooled-lattice offset."""
-    k = patch // _POOL
-    h, w = map_shape
-    gy = torch.tensor([y // _POOL for y, _ in positions])
-    gx = torch.tensor([x // _POOL for _, x in positions])
-    off = torch.arange(k)
-    last = (off == k - 1).long()
-    role = last[:, None] + 2 * last[None, :]                  # (k, k)
-    rows = gy[:, None, None] + off[None, :, None]             # (Nw, k, 1)
-    cols = gx[:, None, None] + off[None, None, :]             # (Nw, 1, k)
-    idx = role[None] * (h * w) + rows * w + cols              # (Nw, k, k)
-    return idx.reshape(len(positions), k * k).to(device)
+    role-map quad, flattened: (Nw, k*k) int64 on `device`
+    (`window_gather_index`: feature (i, j) of a window, k = patch/4, comes
+    from map `is_last_row(i) + 2 * is_last_col(j)`, at the window's
+    pooled-lattice offset)."""
+    gy, gx = (torch.tensor(v, dtype=torch.int64) for v in _origins(positions))
+    return window_gather_index(gy, gx, patch // _POOL, map_shape).to(device)
 
 
 def _squeeze_map(x: torch.Tensor) -> torch.Tensor:
@@ -202,16 +218,26 @@ def _squeeze_map(x: torch.Tensor) -> torch.Tensor:
     return x[0, ..., 0] if x.ndim == 4 else x[0]
 
 
-def _head_scores(be: B.Backend, p: dict, quad, gather: torch.Tensor) -> torch.Tensor:
-    """The sweep's dense-head half: role-map quad + gather indices ->
-    (Nw, 10) backend-native scores (one gather, then the dense head: on
-    `fixed_cuda` one dense and one sigmoid launch).  Each map is squeezed
-    to (H/4, W/4) first, words or NHWC floats alike, so the flat indices
-    of `_window_gather` address the same features in both layouts.  Kept
-    apart from the trunk so that a server that splits the sweep into trunk
-    and head runs the same words."""
-    stacked = torch.stack([_squeeze_map(m) for m in quad])   # (4, h, w)
-    feats = stacked.reshape(-1)[gather]                       # (Nw, k*k)
+def _head_scores(be: B.Backend, p: dict, quad, patch: int,
+                 positions: tuple[tuple[int, int], ...], fused: bool = True) -> torch.Tensor:
+    """The sweep's dense-head half: role-map quad + window positions ->
+    (Nw, 10) backend-native scores.  Each map is squeezed to (H/4, W/4)
+    first, words or NHWC floats alike.  With `fused`, a backend's
+    `window_head` hook takes the whole head (`fixed_cuda`: one launch that
+    reads each window's features straight from the maps); otherwise, and
+    on every other backend, the head composes one gather from the stacked
+    maps and the dense head (on `fixed_cuda` one dense and one sigmoid
+    launch).  Kept apart from the trunk so that a server that splits the
+    sweep into trunk and head runs the same words."""
+    maps = [_squeeze_map(m) for m in quad]
+    shape, device = tuple(maps[0].shape), maps[0].device
+    if fused:
+        gy, gx = _window_origins(patch, positions, shape, device)
+        scores = be.window_head(maps, gy, gx, p)
+        if scores is not None:
+            return scores
+    gather = _window_gather(patch, positions, shape, device)
+    feats = torch.stack(maps).reshape(-1)[gather]            # (Nw, k*k)
     return smallnet.dense_head(p, feats, backend=be)
 
 
@@ -222,9 +248,7 @@ def _sweep(be: B.Backend, params: Any, frame: torch.Tensor, patch: int,
     frame's device."""
     p = be.prepare_params(params, frame.device)
     quad = _trunk_quad(be, p, frame, megakernel)
-    H, W = frame.shape[1], frame.shape[2]
-    gather = _window_gather(patch, positions, (H // _POOL, W // _POOL), frame.device)
-    return _head_scores(be, p, quad, gather)
+    return _head_scores(be, p, quad, patch, positions, fused=megakernel is not False)
 
 
 def sweep_feature_maps(params: Any, frame, *,
@@ -256,9 +280,9 @@ class FcnSweep(Tiler):
     multiple of 4 (pooled-map granularity) and defaults to 8.  `extract`
     returns the frame itself as a (1,H,W,1) "tile" batch (the mass gate
     computes per-window means from it), and `score` runs the sweep on the
-    caller's device: one `frame_trunk` launch and the head per frame on
-    `fixed_cuda`.  `megakernel` selects the trunk route (see the module
-    note); it changes launches per frame, not scores.
+    caller's device: one `frame_trunk` launch and one head launch per frame
+    on `fixed_cuda`.  `megakernel` selects the route (see the module note);
+    it changes launches per frame, not scores.
     """
     stride: int = 8
     megakernel: bool | None = None

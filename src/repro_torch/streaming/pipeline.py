@@ -19,7 +19,7 @@ fabric, so a slow stage means dropped frames, not unbounded queues:
              ingesting on schedule.  In sweep mode the wave is instead ONE
              full-frame sweep, `FcnSweep.score` on the engine's params and
              backend, on the engine's device (one `frame_trunk` launch and
-             the head on `fixed_cuda`).
+             one head launch on `fixed_cuda`).
   aggregate  confidence thresholding + dedup -> `FrameResult` (identical
              code path for both tilers: scores in, Detections out).
 

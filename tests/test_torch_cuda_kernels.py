@@ -3,6 +3,9 @@
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import no JAX, so they run on the GPU machine as they
 are:  PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
+The new routes: the whole-net `fixed_smallnet` at B = 1, 63, 64 and 16384,
+`fixed_dense` on its rows and generic routes, and `fixed_window_head` at
+112x112, 56x84 and 1080x1920 frames, each in all five formats.
 Tolerances: Qm.n words, max-pooled floats, PLAN floats and quant_matmul's
 int32 sums must be equal (0); the float conv within rtol = atol = 2e-5
 (nvcc contracts its multiply-adds into FMAs, and its sigmoid is
@@ -74,9 +77,26 @@ def test_fixed_cuda_apply_matches_fixed_on_card(cuda, cfg_name):
     images = torch.from_numpy(synth_mnist.make_dataset(64, seed=4)[0]).to(cuda)
     reset_launches()
     got = smallnet.apply(params, images, backend=TB.FixedCudaBackend(cfg=cfg))
-    assert launches() == {"fixed_conv2d": 2, "fixed_dense": 1, "fixed_sigmoid": 1}
+    assert launches() == {"fixed_smallnet": 1}             # the served step, one launch
     want = smallnet.apply(params, images.cpu(), backend=TB.FixedBackend(cfg=cfg))
     assert torch.equal(got.cpu(), want)
+
+
+def test_net_scores_routes_on_what_the_kernel_takes_on_card(cuda):
+    """31x29 images pool to the dense layer's 7x7: one whole-net launch; a
+    batch past the kernel's shared memory (200x200 images, a (2500, 10)
+    dense layer) composes the stages."""
+    be = TB.get_backend("fixed_cuda")
+    params = {k: {n: torch.tensor(a, dtype=torch.float32) for n, a in v.items()}
+              for k, v in _numpy_params(5).items()}
+    images = torch.rand((6, 31, 29, 1), generator=torch.Generator().manual_seed(5))
+    reset_launches()
+    got = smallnet.apply(params, images.to(cuda), backend=be)
+    assert launches() == {"fixed_smallnet": 1}
+    assert torch.equal(got.cpu(), smallnet.apply(params, images, backend="fixed", device="cpu"))
+    big = be.prepare_params(dict(params, dense={"w": torch.zeros((2500, 10)),
+                                                "b": torch.zeros(10)}), cuda)
+    assert be.net_scores(torch.zeros((1, 200, 200, 1), device=cuda), big) is None
 
 
 def _numpy_params(seed):
@@ -173,3 +193,118 @@ def test_float_and_int8_apply_match_cpu_on_card(cuda, backend, plain, per_step):
             assert torch.equal(on_card[layer]["w"].q.cpu(), on_cpu[layer]["w"].q)
             assert torch.equal(on_card[layer]["w"].scale.cpu(), on_cpu[layer]["w"].scale)
         assert torch.equal(got.cpu(), want)
+
+
+def _smallnet_args(rng, B, H, W, N, cfg, device):
+    K = (H // 4) * (W // 4)
+    return [_words(rng, shape, cfg, device)
+            for shape in ((B, H, W), (4,), (1,), (4,), (1,), (K, N), (N,))]
+
+
+@pytest.mark.parametrize("cfg_name", CONFIGS)
+@pytest.mark.parametrize("B,H,W,N", [(1, 28, 28, 10), (63, 28, 28, 10), (64, 28, 28, 10),
+                                     (16384, 28, 28, 10), (3, 37, 53, 10), (2, 9, 8, 16)])
+def test_fixed_smallnet_matches_plain_on_card(cuda, cfg_name, B, H, W, N):
+    cfg = tfxp.STANDARD_CONFIGS[cfg_name]
+    args = _smallnet_args(np.random.default_rng(B + H), B, H, W, N, cfg, cuda)
+    reset_launches()
+    got = C.fixed_smallnet(*args, cfg=cfg)
+    assert launches() == {"fixed_smallnet": 1}
+    assert torch.equal(got, C.fixed_smallnet_plain(*args, cfg=cfg))
+
+
+@pytest.mark.parametrize("cfg_name", CONFIGS)
+@pytest.mark.parametrize("M,K,N", [(64, 49, 10), (16384, 49, 10), (31654, 49, 10), (130, 49, 16),
+                                   (65, 49, 11), (64, 49, 20), (100, 900, 10), (3, 7, 5)])
+def test_fixed_dense_routes_match_plain_on_card(cuda, cfg_name, M, K, N):
+    """Each shape on the route its launcher picks (rows for N <= 16 and K
+    within the shared memory, generic for (64,49,20) and (100,900,10))."""
+    cfg = tfxp.STANDARD_CONFIGS[cfg_name]
+    rng = np.random.default_rng(M + K + N)
+    x, w, b = _words(rng, (M, K), cfg, cuda), _words(rng, (K, N), cfg, cuda), \
+        _words(rng, (N,), cfg, cuda)
+    reset_launches()
+    assert torch.equal(D.fixed_dense(x, w, b, cfg=cfg), D.fixed_dense_plain(x, w, b, cfg=cfg))
+    assert launches() == {"fixed_dense": 1}
+    xo = _words(rng, (M * K + 1,), cfg, cuda)[1:].reshape(M, K)    # not 16-byte aligned
+    assert torch.equal(D.fixed_dense(xo, w, b, cfg=cfg), D.fixed_dense_plain(xo, w, b, cfg=cfg))
+
+
+@pytest.mark.parametrize("K,N,route", [(49, 10, "rows"), (49, 16, "rows"), (49, 1, "rows"),
+                                       (49, 17, "generic"), (900, 10, "generic"),
+                                       (7, 5, "rows"), (700, 10, "rows"), (49, 20, "generic")])
+def test_fixed_dense_route_on_card(cuda, K, N, route):
+    assert D.fixed_dense_route(K, N) == route
+
+
+def test_whole_net_fits_on_card(cuda):
+    """`smallnet_fits` is the launcher's own rule, and the wrapper raises
+    ValueError where it says no."""
+    assert C.smallnet_fits(28, 28, 10) and C.smallnet_fits(4, 4, 1)
+    assert C.smallnet_fits(160, 160, 10)
+    assert not C.smallnet_fits(200, 200, 10) and not C.smallnet_fits(3, 28, 10)
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda)      # noqa: E731
+    with pytest.raises(ValueError, match="cannot take"):
+        C.fixed_smallnet(z(1, 200, 200), z(4), z(1), z(4), z(1), z(2500, 10), z(10))
+
+
+@pytest.mark.parametrize("cfg_name", CONFIGS)
+@pytest.mark.parametrize("H,W", [(112, 112), (56, 84), (1080, 1920)])
+def test_fixed_window_head_matches_plain_on_card(cuda, cfg_name, H, W):
+    from repro_torch.streaming import FcnSweep
+    from repro_torch.streaming.fcn_sweep import _window_origins
+    cfg = tfxp.STANDARD_CONFIGS[cfg_name]
+    rng = np.random.default_rng(H + W)
+    pos = tuple(FcnSweep(stride=8).positions((H, W)))
+    gy, gx = _window_origins(28, pos, (H // 4, W // 4), cuda)
+    quad = _words(rng, (4, H // 4, W // 4), cfg, cuda)
+    for N in (10, 16):
+        w, b = _words(rng, (49, N), cfg, cuda), _words(rng, (N,), cfg, cuda)
+        reset_launches()
+        got = D.fixed_window_head(quad, gy, gx, w, b, cfg=cfg)
+        assert launches() == {"fixed_window_head": 1}
+        assert torch.equal(got, D.fixed_window_head_plain(quad, gy, gx, w, b, cfg=cfg)), N
+    with pytest.raises(ValueError, match="cannot take"):
+        D.fixed_window_head(quad, gy, gx, _words(rng, (49, 17), cfg, cuda),
+                            _words(rng, (17,), cfg, cuda), cfg=cfg)
+
+
+@pytest.mark.parametrize("megakernel,per_frame", [
+    (None, {"frame_trunk": 1, "fixed_window_head": 1}),
+    (False, {"fixed_conv2d": 20, "fixed_maxpool2x2": 2, "fixed_sigmoid": 12, "fixed_dense": 1}),
+])
+def test_swept_frame_launches_on_card(cuda, megakernel, per_frame):
+    from repro_torch.streaming import FcnSweep, SyntheticVideoSource
+    params = _numpy_params(7)
+    frame = SyntheticVideoSource(n_frames=1, seed=7).frames()[0]
+    sweep = FcnSweep(stride=8, megakernel=megakernel)
+    fb, _ = sweep.extract(frame)
+    want = sweep.score(params, fb, backend="fixed", device="cpu")
+    reset_launches()
+    got = sweep.score(params, fb, backend="fixed_cuda", device="cuda")
+    assert launches() == per_frame
+    np.testing.assert_array_equal(got, want)
+
+
+def test_window_past_the_maps_traps_on_card(cuda):
+    """A window past the maps stops the head kernel with a CUDA error (a
+    trap poisons the process's CUDA context, so it runs in a child)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    probe = (
+        "import torch\n"
+        "from repro_torch.kernels.quant_matmul import ops as D\n"
+        "z = torch.zeros((4, 28, 28), dtype=torch.int32, device='cuda')\n"
+        "g = torch.tensor([0, 22], dtype=torch.int32, device='cuda')\n"
+        "w = torch.zeros((49, 10), dtype=torch.int32, device='cuda')\n"
+        "b = torch.zeros(10, dtype=torch.int32, device='cuda')\n"
+        "D.fixed_window_head(z, g, g, w, b)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0 and "no error" not in out.stdout, out.stdout

@@ -6,9 +6,11 @@ plain versions run) gives the same role-map words and window-score words
 as the reference's composed sweep (`megakernel=False`, as the JAX tests
 run it on the CPU), the port's host `Tiler`, the frozen golden vectors
 (through the committed seeded-params fixture) and, for the trunk, the
-reference's `conv_trunk`.  The edge contract raises as the reference's
+reference's `conv_trunk`.  The one-launch window head's plain route equals
+the reference's `_head_scores` on any role-map words.  The edge contract raises as the reference's
 does.  Tolerance: exact int32 words.
 """
+import dataclasses
 import json
 import pathlib
 
@@ -30,6 +32,7 @@ from repro_torch.core import fixed_point as tfxp  # noqa: E402
 from repro_torch.core import smallnet as tsn  # noqa: E402
 from repro_torch.core.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
+from repro_torch.kernels.quant_matmul import ops as D  # noqa: E402
 from repro_torch.streaming import fcn_sweep as tfs  # noqa: E402
 from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler  # noqa: E402
 
@@ -248,3 +251,75 @@ def test_frame_trunk_hook_routes_only_tileable_single_frames():
         reset_launches()
         assert be.frame_trunk(torch.zeros((1, 28, 28, 1)), p)[3].shape == (1, 7, 7)
         assert launches() == {}          # CPU tensors run the plain version
+
+
+@pytest.mark.parametrize("fmt", ["q16_16", "q16_16_trunc", "q8_8"])
+@pytest.mark.parametrize("shape", [(112, 112), (56, 84)])
+def test_window_head_plain_route_matches_jax_head(fmt, shape):
+    """The head alone, on random role-map words (the format's extremes
+    included): the reference's `_head_scores` against the window head's
+    plain version, its wrapper on CPU tensors and the port's
+    `_head_scores` on both routes."""
+    H, W = shape
+    h, w = H // 4, W // 4
+    cfg = tfxp.STANDARD_CONFIGS[fmt]
+    rng = np.random.default_rng(H * W)
+    words = rng.integers(cfg.min_int, cfg.max_int + 1, (4, h, w)).astype(np.int32)
+    words.reshape(-1)[:4] = (cfg.max_int, cfg.min_int, cfg.max_int, cfg.min_int)
+    params = numpy_params(seed=4)
+    jbe = JB.FixedBackend(name=f"fixed_{fmt}", cfg=jfxp.STANDARD_CONFIGS[fmt])
+    pos = tuple(jfs.FcnSweep(stride=8).positions((H, W)))
+    assert pos == tuple(FcnSweep(stride=8).positions((H, W)))
+    jquad = tuple(jnp.asarray(words[k][None]) for k in range(4))
+    want = np.asarray(jfs._head_scores(jbe, jbe.prepare_params(params), jquad,
+                                       jfs._window_gather(28, pos), len(pos)))
+    tbe = TB.FixedCudaBackend(cfg=cfg)
+    tp = tbe.prepare_params(params_from_jax(params, "cpu"), "cpu")
+    maps = [torch.from_numpy(words[k]) for k in range(4)]
+    gy, gx = tfs._window_origins(28, pos, (h, w), torch.device("cpu"))
+    dw, db = tp["dense"]["w"], tp["dense"]["b"]
+    for got in (D.fixed_window_head_plain(maps, gy, gx, dw, db, cfg=cfg),
+                D.fixed_window_head(torch.from_numpy(words), gy, gx, dw, db, cfg=cfg),
+                tfs._head_scores(tbe, tp, tuple(m[None] for m in maps), 28, pos),
+                tfs._head_scores(tbe, tp, tuple(m[None] for m in maps), 28, pos,
+                                 fused=False)):
+        assert got.dtype == torch.int32 and got.shape == (len(pos), 10) == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sweep_head_route_follows_megakernel(frame112):
+    """The one-launch head is taken on the default and the frame_trunk
+    routes and never on the composed one; the words are the same."""
+    calls = []
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(TB.FixedCudaBackend):
+        name: str = "fixed_cuda_recording"
+
+        def window_head(self, maps, gy, gx, p):
+            calls.append(int(gy.shape[0]))
+            return super().window_head(maps, gy, gx, p)
+
+    params = params_from_jax(numpy_params(), "cpu")
+    fb, pos = FcnSweep(stride=8).extract(frame112)
+    want = FcnSweep(stride=8).score(params, fb, backend="fixed", device="cpu")
+    for megakernel, n_calls in ((None, 1), (True, 1), (False, 0)):
+        calls.clear()
+        got = FcnSweep(stride=8, megakernel=megakernel).score(params, fb, backend=Recording(),
+                                                              device="cpu")
+        assert calls == [len(pos)] * n_calls
+        np.testing.assert_array_equal(got, want)
+    for name in ("fixed", "ref", "cuda_plan", "int8"):
+        be = TB.get_backend(name)
+        z = torch.zeros((7, 7), dtype=torch.int32)
+        assert be.window_head([z] * 4, torch.zeros(1, dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32),
+                              be.prepare_params(params, "cpu")) is None
+    with pytest.raises(ValueError, match="outside"):
+        tfs._window_origins(28, ((0, 0), (88, 4)), (28, 28), torch.device("cpu"))
+    z = torch.zeros((28, 28), dtype=torch.int32)
+    w, b = torch.zeros((49, 10), dtype=torch.int32), torch.zeros(10, dtype=torch.int32)
+    for y, x in ((22, 0), (0, 22), (-1, 0)):     # past the maps' last row, column, first row
+        with pytest.raises(ValueError, match="outside"):
+            D.fixed_window_head([z] * 4, torch.tensor([0, y], dtype=torch.int32),
+                                torch.tensor([0, x], dtype=torch.int32), w, b)
