@@ -11,9 +11,12 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   build     compile the kernels of src/repro_torch/csrc with nvcc (sm_90a),
             timed, with ptxas' register counts
   ptxas     for the redesigned sources (quant_matmul.cu, frame_trunk.cu,
-            fixed_dense.cu, fixed_net.cu): each kernel's registers, spills
-            and static shared memory from `-Xptxas -v`, and its SASS
-            instruction counts (cuobjdump)
+            fixed_dense.cu, fixed_net.cu, float_kernels.cu, float_net.cu):
+            each kernel's registers, spills and static shared memory from
+            `-Xptxas -v`, and its SASS instruction counts (cuobjdump); in
+            float_kernels.cu conv2d_direct_kernel is the one-thread-per-
+            output conv2d of PR 13 (kept for convs no tile fits) beside the
+            tiled conv2d_tile_kernel<V,act,2x2>
   golden    each kernel against tests/golden/fixed_golden.json, word for
             word, in all five STANDARD_CONFIGS; then, with the committed
             params fixture tests/golden/seeded_params.json, the frame_trunk
@@ -41,13 +44,20 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             odd extents) in all five configs, timed in Q16.16 beside the
             composed four-launch step; fixed_window_head at 112x112, 56x84
             and 1080x1920 frames in all five configs, timed beside the
-            four-op head (stack, gather, dense, PLAN).  Then the float and
+            four-op head (stack, gather, dense, PLAN).  float_smallnet,
+            the served float step in one launch, within 2e-5 of its plain
+            version with both activations at B = 1, 63, 64 and 16384 (and
+            other extents, a NaN pixel), timed at 28x28 beside the composed
+            float step's launches.  Then the float and
             int8 kernels: sigmoid_pla (torch.equal, shapes up to 2^24
             words, the breakpoints, +-0.0 and their float neighbours),
             maxpool2d (torch.equal in float32 and bfloat16, odd extents,
-            NaN), conv2d (allclose 2e-5: the reference's six test shapes,
-            each activation at the engine's shapes, a 512x512 stride-2
-            frame) and quant_matmul (an exact int32 sum at unit scales on
+            NaN), conv2d (allclose 2e-5 and F.conv2d with TF32 off: the
+            reference's six test shapes, each activation at the engine's
+            shapes, a 512x512 stride-2 frame, the tiled kernel's edges
+            (extents off the tile, Cout 1, 3, 16, 17, Cin 3, stride 3), a
+            (16384,28,28,1) batch and a conv the direct kernel takes; the
+            launcher's tile per case) and quant_matmul (an exact int32 sum at unit scales on
             both routes; rtol 1e-6 from (64,49,10) up to (4096,4096,4096),
             each shape's route named); library calls F.conv2d (TF32 off),
             F.max_pool2d and torch._int_mm where its shape rules allow (at
@@ -70,8 +80,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             score within 2e-5 of the same formed batch on the backend's
             plain counterpart on the CPU (ref for cuda, plan for cuda_plan,
             int8 on CPU tensors), int8's weight and activation words equal,
-            and per step 2 conv2d + 2 maxpool2d (+1 sigmoid_pla on
-            cuda_plan), 1 quant_matmul on int8, none on ref and plan
+            and per step 1 float_smallnet on cuda and cuda_plan, 1
+            quant_matmul on int8, none on ref and plan; a composed float
+            engine (cuda_plan without its whole-net launch, 256 requests)
+            keeps 2 conv2d + 2 maxpool2d + 1 sigmoid_pla a step on a served
+            path
   sweep     StreamingPipeline(SyntheticVideoSource(seed=7, 112x112, 64
             frames), VisionEngine(backend="fixed_cuda", device="cuda"),
             FcnSweep(stride=8)) in throughput mode, in Q16.16 and Q8.8: each
@@ -153,6 +166,9 @@ KERNELS = {
                     "src/repro/kernels/frame_trunk/kernel.py:172"),
     "conv2d": ("src/repro_torch/csrc/float_kernels.cu",
                "src/repro/kernels/conv2d/kernel.py:58"),
+    # the served float step in one launch: rows 6, 7 and 8 fused, in row 6's place
+    "float_smallnet": ("src/repro_torch/csrc/float_net.cu",
+                       "src/repro/kernels/conv2d/kernel.py:58"),
     "maxpool2d": ("src/repro_torch/csrc/float_kernels.cu",
                   "src/repro/kernels/maxpool2d/kernel.py:21"),
     "sigmoid_pla": ("src/repro_torch/csrc/float_kernels.cu",
@@ -603,6 +619,123 @@ def phase_smallnet_kernel(card: str) -> dict:
     return table
 
 
+def float_smallnet_work(B, H, W, N, act):
+    """(bytes, float32 operations) of the whole float net over B (H, W)
+    images, counted as conv_float_work counts: each image float and each of
+    the 10 + K*N + N parameters read once, each score written once; per
+    conv output 8 for its four taps, 1 for its bias and the activation's (4
+    sigmoid, 3 PLAN), four conv outputs a pooled float at both levels and 3
+    compares; per score 2 a dense multiply-accumulate, its bias and its
+    activation."""
+    K = (H // 4) * (W // 4)
+    a = {"sigmoid": 4, "plan": 3}[act]
+    pooled = (H // 2) * (W // 2) + K
+    per_image = pooled * (4 * (8 + 1 + a) + 3) + N * (2 * K + 1 + a)
+    return 4 * (B * H * W + 10 + K * N + N + B * N), B * per_image
+
+
+def phase_float_smallnet_kernel(card: str) -> dict:
+    """float_smallnet, the served float step in one launch, against its
+    plain version (the stages composed) on the card within FLOAT_TOL, with
+    both activations at B = 1, 63, 64 and 16384 (and other extents); at
+    28x28 its time, bound and plain time beside the composed float step's
+    launches (conv2d, maxpool2d, conv2d, maxpool2d, the matmul, the bias add
+    and sigmoid_pla or torch.sigmoid) at the same B; a NaN pixel through
+    both pools; the shapes the launcher refuses."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.conv2d import conv2d, float_smallnet, float_smallnet_plain
+    from repro_torch.kernels.maxpool2d import maxpool2d
+    from repro_torch.kernels.sigmoid_pla import sigmoid_pla
+
+    rng = np.random.default_rng(2030)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    cases = [(1, 28, 28, 10), (63, 28, 28, 10), (ENGINE_BATCH, 28, 28, 10),
+             (LARGE_BATCH, 28, 28, 10), (3, 37, 53, 10), (2, 32, 24, 10), (5, 64, 64, 3)]
+    reset_launches()
+    max_err, n_checked, shapes = 0.0, 0, []
+    for act in ("plan", "sigmoid"):
+        for B, H, W, N in cases:
+            K = (H // 4) * (W // 4)
+            args = [f32(rng.normal(size=(B, H, W, 1))), f32(rng.uniform(-1.5, 1.5, (2, 2, 1, 1))),
+                    f32(rng.normal(0, 0.5, (1,))), f32(rng.uniform(-1.5, 1.5, (2, 2, 1, 1))),
+                    f32(rng.normal(0, 0.5, (1,))), f32(rng.uniform(-0.6, 0.6, (K, N))),
+                    f32(rng.normal(0, 0.5, (N,)))]
+            got = float_smallnet(*args, activation=act)
+            want = float_smallnet_plain(*args, activation=act)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            expect(got.shape == want.shape
+                   and torch.allclose(got, want, rtol=FLOAT_TOL, atol=FLOAT_TOL),
+                   f"float_smallnet B={B} {H}x{W} N={N} {act}: kernel differs from plain "
+                   f"(max |err| {err})")
+            max_err, n_checked = max(max_err, err), n_checked + 1
+            if (H, W) != (28, 28):
+                continue
+            x, c1w, c1b, c2w, c2b, dw, db = args
+
+            def composed(x=x, c1w=c1w, c1b=c1b, c2w=c2w, c2b=c2b, dw=dw, db=db, B=B, act=act):
+                y = maxpool2d(conv2d(x, c1w, c1b, activation=act))
+                y = maxpool2d(conv2d(y, c2w, c2b, activation=act))
+                s = y.reshape(B, -1) @ dw + db
+                return sigmoid_pla(s) if act == "plan" else torch.sigmoid(s)
+            expect(torch.allclose(composed(), got, rtol=FLOAT_TOL, atol=FLOAT_TOL),
+                   f"float_smallnet B={B} {act}: the composed step differs")
+            pre = torch.zeros((B, N), device="cuda")
+
+            def composed_kernels(x=x, c1w=c1w, c1b=c1b, c2w=c2w, c2b=c2b, pre=pre, act=act):
+                # the composed step's hand-written kernels alone, without the
+                # matmul and the bias add
+                y = maxpool2d(conv2d(maxpool2d(conv2d(x, c1w, c1b, activation=act)), c2w, c2b,
+                                     activation=act))
+                return sigmoid_pla(pre) if act == "plan" else y
+            reps = 200 if B <= ENGINE_BATCH else 20
+            nbytes, ops = float_smallnet_work(B, H, W, N, act)
+            b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS_PER_S)
+            shapes.append({"case": f"B={B} (28,28,1) -> ({B},10) {act}", "ms": device_ms(
+                lambda: float_smallnet(*args, activation=act), reps),
+                "plain_ms": device_ms(lambda: float_smallnet_plain(*args, activation=act),
+                                      max(reps // 10, 5)),
+                "composed_step_ms": device_ms(composed, reps),
+                "composed_kernels_ms": device_ms(composed_kernels, reps),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bytes": nbytes, "ops": ops})
+    # a NaN pixel: its image's scores are NaN, through both pools
+    x, *rest = args
+    x = x.clone()
+    x[1, 13, 6, 0] = float("nan")
+    got = float_smallnet(x, *rest, activation="sigmoid")
+    want = float_smallnet_plain(x, *rest, activation="sigmoid")
+    expect(bool(torch.isnan(got[1]).all()) and torch.equal(torch.isnan(got), torch.isnan(want))
+           and torch.allclose(torch.nan_to_num(got), torch.nan_to_num(want), rtol=FLOAT_TOL,
+                              atol=FLOAT_TOL),
+           "float_smallnet: a NaN pixel does not propagate as in torch.maximum")
+    n_checked += 1
+    # K != (H/4)(W/4) (the wrapper); past the shared memory (the launcher)
+    for shape, dw_shape in (((2, 28, 28, 1), (48, 10)), ((1, 200, 200, 1), (2500, 10))):
+        z = [torch.zeros(sh, device="cuda") for sh in
+             (shape, (2, 2, 1, 1), (1,), (2, 2, 1, 1), (1,), dw_shape, (dw_shape[1],))]
+        try:
+            float_smallnet(*z)
+        except ValueError:
+            continue
+        raise SmokeError(f"float_smallnet {shape} dw {dw_shape}: expected ValueError")
+    eng = next(r for r in shapes if r["case"].startswith(f"B={ENGINE_BATCH} ")
+               and r["case"].endswith("plan"))
+    table = {"name": "float_smallnet", "route": "cuda", "source": KERNELS["float_smallnet"][0],
+             "replaces": KERNELS["float_smallnet"][1], "launches": 0, "max_abs_err": max_err,
+             **{k: eng[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("kernel", name="float_smallnet", checked=n_checked, max_abs_err=max_err,
+         tolerance=FLOAT_TOL, launches_in_this_phase=launches().get("float_smallnet", 0),
+         card=card, engine_step=table, shapes=shapes,
+         library="none: no PyTorch call computes the float net")
+    return table
+
+
 def window_head_work(Nw, h, w, K, N):
     """(bytes, integer operations) of the window head: the four (h, w)
     maps, the offsets, w and b read once, the scores written once; 2 ops a
@@ -810,14 +943,15 @@ def phase_float_kernels(card: str) -> dict:
     """The float and int8 kernels against their plain versions on the card,
     then their times: median device time, bound, plain time and, where one
     PyTorch call computes the same function, that call's time.  Each
-    kernel's row in the `kernels` line is the work one served step of 64
-    asks of it (on cuda_plan: both conv launches, both pool launches, the
-    (64,10) PLAN; on int8: the (64,49)@(49,10) dense)."""
+    kernel's row in the `kernels` line is the work one composed float step
+    of 64 asks of it (on cuda_plan without its whole-net launch: both conv
+    launches, both pool launches, the (64,10) PLAN; on int8: the
+    (64,49)@(49,10) dense)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import launches, reset_launches
-    from repro_torch.kernels.conv2d import conv2d, conv2d_plain
+    from repro_torch.kernels.conv2d import conv2d, conv2d_plain, conv2d_tile
     from repro_torch.kernels.maxpool2d import maxpool2d, maxpool2d_plain
     from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_plain,
                                                   quant_matmul_route)
@@ -930,21 +1064,42 @@ def phase_float_kernels(card: str) -> dict:
                              "F.max_pool2d(kernel 2) on the NCHW view")
 
     # -- conv2d: allclose 2e-5 --------------------------------------------------
-    def lib_conv(x, w, b):
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding="same")
-        return y.permute(0, 2, 3, 1)
+    def lib_conv(x, w, b, padding="SAME", stride=1):
+        """F.conv2d on the NCHW views, SAME's bottom/right zeros padded where
+        the strided outputs read them."""
+        kh, kw = w.shape[:2]
+        xc = x.permute(0, 3, 1, 2)
+        if padding == "SAME":
+            ph = max(0, (-(-x.shape[1] // stride) - 1) * stride + kh - x.shape[1])
+            pw = max(0, (-(-x.shape[2] // stride) - 1) * stride + kw - x.shape[2])
+            xc = F.pad(xc, (0, pw, 0, ph)) if ph or pw else xc
+        return F.conv2d(xc, w.permute(3, 2, 0, 1), b, stride=stride).permute(0, 2, 3, 1)
 
+    # the reference's six test shapes, the served step's two, the 512x512
+    # frame; then the tiled kernel's edges (extents that are not multiples
+    # of a tile, Cout 1, 3, 16 and 17, Cin 3, stride 3), a batch of 16384
+    # images, and a conv whose single-pixel tile does not fit (the direct
+    # kernel)
     cases = [((2, 28, 28, 1), (2, 2, 1, 1), "SAME", 1), ((2, 14, 14, 1), (2, 2, 1, 1), "SAME", 1),
              ((1, 16, 16, 3), (3, 3, 3, 8), "SAME", 1), ((3, 16, 12, 4), (2, 2, 4, 4), "VALID", 1),
              ((1, 32, 32, 2), (5, 5, 2, 6), "SAME", 2), ((2, 8, 8, 8), (1, 1, 8, 16), "VALID", 1),
              ((E, 28, 28, 1), (2, 2, 1, 1), "SAME", 1), ((E, 14, 14, 1), (2, 2, 1, 1), "SAME", 1),
-             ((1, 512, 512, 1), (2, 2, 1, 16), "SAME", 2)]
-    shapes, n_checked, max_err = [], 0, 0.0
+             ((1, 512, 512, 1), (2, 2, 1, 16), "SAME", 2),
+             ((2, 37, 53, 3), (2, 2, 3, 17), "SAME", 1), ((1, 41, 35, 3), (3, 3, 3, 16), "SAME", 3),
+             ((1, 41, 35, 3), (3, 3, 3, 3), "VALID", 3), ((3, 29, 31, 1), (2, 2, 1, 3), "SAME", 2),
+             ((2, 37, 53, 1), (2, 2, 1, 1), "SAME", 1), ((LARGE_BATCH, 28, 28, 1), (2, 2, 1, 1),
+                                                         "SAME", 1),
+             ((1, 5, 6, 1100), (2, 2, 1100, 4), "SAME", 1)]
+    shapes, n_checked, max_err, tiles = [], 0, 0.0, []
     prev_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False       # F.conv2d in full float32
     try:
         for xs, ws, pad, stride in cases:
             x, w, b = normal(xs, 3.0), normal(ws), normal(ws[3:])
+            if xs[3] > 64:
+                # a sum of thousands of products, which cuDNN adds in another
+                # order: positive terms keep its rounding relative
+                x, w = x.abs(), w.abs()
             for act in (None, "sigmoid", "plan"):
                 kw = dict(padding=pad, stride=stride, activation=act)
                 got, want = conv2d(x, w, b, **kw), conv2d_plain(x, w, b, **kw)
@@ -956,9 +1111,22 @@ def phase_float_kernels(card: str) -> dict:
                        f"plain (max |err| {err})")
                 max_err = max(max_err, err)
                 n_checked += 1
+            expect(torch.allclose(lib_conv(x, w, b, pad, stride),
+                                  conv2d(x, w, b, padding=pad, stride=stride),
+                                  rtol=FLOAT_TOL, atol=FLOAT_TOL),
+                   f"conv2d {xs} {ws} {pad} s{stride}: F.conv2d differs")
+            tiles.append({"x": list(xs), "w": list(ws), "padding": pad, "stride": stride,
+                          "tile": conv2d_tile(xs, ws, stride=stride, padding=pad) or "direct"})
+            if xs[0] == LARGE_BATCH:
+                for act in ("plan", None):
+                    shapes.append(timed(
+                        f"large {xs} {act or 'pre-activation'}",
+                        lambda x=x, w=w, b=b, act=act: conv2d(x, w, b, activation=act),
+                        lambda x=x, w=w, b=b, act=act: conv2d_plain(x, w, b, activation=act),
+                        (lambda x=x, w=w, b=b: lib_conv(x, w, b)) if act is None else None,
+                        conv_float_work(*xs, 2, 2, 1, 28, 28, act), F32_FLOPS_PER_S, 20,
+                        "large" if act else "large, no activation"))
             if xs[0] == E:                           # the served step's two convs
-                expect(torch.allclose(lib_conv(x, w, b), conv2d(x, w, b), rtol=FLOAT_TOL,
-                                      atol=FLOAT_TOL), f"conv2d {xs}: F.conv2d differs")
                 Ho = xs[1]
                 for act in ("plan", None):
                     shapes.append(timed(
@@ -968,6 +1136,9 @@ def phase_float_kernels(card: str) -> dict:
                         (lambda x=x, w=w, b=b: lib_conv(x, w, b)) if act is None else None,
                         conv_float_work(E, Ho, Ho, 1, 2, 2, 1, Ho, Ho, act), F32_FLOPS_PER_S,
                         200, "engine" if act == "plan" else "engine, no activation"))
+        emit("kernel", name="conv2d", tiles=tiles,
+             note="the launcher's tile per case: output rows TH and columns TW a block, "
+                  "rows PR and channels V a thread, channels CC a block, shared-memory bytes")
         x, w, b = normal((1, 512, 512, 1), 3.0), normal((2, 2, 1, 16)), normal((16,))
         shapes.append(timed("frame (1,512,512,1)x(2,2,1,16) stride 2 plan",
                             lambda: conv2d(x, w, b, stride=2, activation="plan"),
@@ -977,20 +1148,17 @@ def phase_float_kernels(card: str) -> dict:
 
         # the same frame pre-activation, beside F.conv2d (SAME at stride 2
         # pads nothing here: (256 - 1) * 2 + 2 == 512)
-        def lib_conv_s2():
-            y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, stride=2)
-            return y.permute(0, 2, 3, 1)
-        expect(torch.allclose(lib_conv_s2(), conv2d(x, w, b, stride=2), rtol=FLOAT_TOL,
-                              atol=FLOAT_TOL), "conv2d 512x512 stride 2: F.conv2d differs")
         shapes.append(timed("frame (1,512,512,1)x(2,2,1,16) stride 2 pre-activation",
                             lambda: conv2d(x, w, b, stride=2),
-                            lambda: conv2d_plain(x, w, b, stride=2), lib_conv_s2,
+                            lambda: conv2d_plain(x, w, b, stride=2),
+                            lambda: lib_conv(x, w, b, stride=2),
                             conv_float_work(1, 512, 512, 1, 2, 2, 16, 256, 256, None),
                             F32_FLOPS_PER_S, 50, "large, no activation"))
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
     conv_row = row("conv2d", shapes, max_err, n_checked,
-                   "F.conv2d(padding='same') with bias, no activation, TF32 off")
+                   "F.conv2d on the NCHW view (SAME's zeros padded where read) with bias, "
+                   "no activation, TF32 off")
     # the library computes the pre-activation conv: its time sits beside the
     # kernel's pre-activation time of the same two convs
     conv_row["library_ms"] = sum(r["library_ms"] for r in shapes
@@ -1519,7 +1687,7 @@ def ptxas_kernels(log: str) -> list[dict]:
                           for m in re.finditer(r"\d+", mangled)
                           if mangled[m.end():m.end() + int(m.group())].endswith("_kernel"))
         targs = re.match(r"I((?:L[^E]*E)+)E", rest)
-        args = [a.replace("n", "-") for a in re.findall(r"Li(n?\d+)E", targs.group(1))] \
+        args = [a.replace("n", "-") for a in re.findall(r"L[ib](n?\d+)E", targs.group(1))] \
             if targs else []
         num = lambda pat: int(re.search(pat, block).group(1)) if re.search(pat, block) else 0
         kernels.append({"kernel": name + (f"<{','.join(args)}>" if args else ""),
@@ -1532,8 +1700,10 @@ def ptxas_kernels(log: str) -> list[dict]:
 
 def sass_counts(so: pathlib.Path) -> dict | str:
     """Per kernel of a built library, how often `cuobjdump -sass` shows the
-    instructions the redesign is about: wide and high multiplies, funnel
-    shifts, local-memory traffic (a spill) and wgmma."""
+    instructions the redesigns are about: wide and high multiplies, funnel
+    shifts, local-memory traffic (a spill), wgmma, and calls (a 64-bit
+    integer division is a called routine), the fp32 FMAs and the
+    shared-memory loads."""
     import os
     import re
     tool = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
@@ -1541,7 +1711,8 @@ def sass_counts(so: pathlib.Path) -> dict | str:
         return "not measured: no cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    ops = ("IMAD.WIDE", "IMAD.HI", "SHF.R", "LEA.HI", "LDL", "STL", "HGMMA", "UTMALDG")
+    ops = ("IMAD.WIDE", "IMAD.HI", "SHF.R", "LEA.HI", "LDL", "STL", "HGMMA", "UTMALDG", "CALL",
+           "FFMA", "LDS")
     out = {}
     for block in text.split("Function : ")[1:]:
         name = ptxas_kernels("Compiling entry function '" + block.split()[0] + "'")[0]["kernel"]
@@ -1594,7 +1765,8 @@ def run(card: str, kind: str, count: int) -> None:
             for k, v in report.items()}
     emit("build", seconds=_build.build_seconds, sources=list(_build.SOURCES),
          ptxas=regs)
-    for name in ("quant_matmul", "frame_trunk", "fixed_dense", "fixed_net"):   # redesigned
+    for name in ("quant_matmul", "frame_trunk", "fixed_dense", "fixed_net", "float_kernels",
+                 "float_net"):                                                  # redesigned
         emit("ptxas", source=f"csrc/{name}.cu", kernels=ptxas_kernels(report[name]),
              sass=sass_counts(_build.library_path(name)))
 
@@ -1602,6 +1774,7 @@ def run(card: str, kind: str, count: int) -> None:
     phase_sweep_golden()
     table = phase_kernels(card)
     table["fixed_smallnet"] = phase_smallnet_kernel(card)
+    table["float_smallnet"] = phase_float_smallnet_kernel(card)
     table["fixed_window_head"] = phase_window_head_kernel(card)
     table["frame_trunk"] = phase_frame_trunk_kernel(card)
     table.update(phase_float_kernels(card))
@@ -1623,6 +1796,17 @@ def run(card: str, kind: str, count: int) -> None:
         def fused_conv_act_pool(self, x, w, b):
             return self.maxpool2x2(self.fused_conv_act(x, w, b))
 
+    @dataclasses.dataclass(frozen=True)
+    class ComposedFloat(B.CudaFloatBackend):
+        """cuda_plan with the net composed of its stages (no whole-net
+        launch): the conv+PLAN launch, the pool launch, twice, then the
+        dense product and the sigmoid_pla launch."""
+        name: str = "cuda_plan_composed"
+        activation: str = "plan"
+
+        def net_scores(self, images, p):
+            return None
+
     params = seeded_params(0)
     images, _ = synth_mnist.make_dataset(N_REQUESTS, seed=1)
     served = {"fixed_smallnet": 1}
@@ -1634,16 +1818,20 @@ def run(card: str, kind: str, count: int) -> None:
         serve_once(params, images[:256], ComposedStages(), "composed q16_16", card,
                    composed),
     ]
-    # the float and int8 backends, each held to its plain counterpart on the CPU
-    float_step = {"conv2d": 2, "maxpool2d": 2}
+    # the float and int8 backends, each held to its plain counterpart on the
+    # CPU; the composed float engine keeps the per-stage float kernels on a
+    # served path
+    float_step = {"float_smallnet": 1}
     for backend, plain, n, per_step in (
-            ("cuda_plan", "plan", N_REQUESTS, dict(float_step, sigmoid_pla=1)),
+            ("cuda_plan", "plan", N_REQUESTS, float_step),
+            (ComposedFloat(), "plan", 256, {"conv2d": 2, "maxpool2d": 2, "sigmoid_pla": 1}),
             ("int8", "int8", N_REQUESTS, {"quant_matmul": 1}),
             ("cuda", "ref", 256, float_step),
             ("ref", "ref", 256, {}),
             ("plan", "plan", 256, {})):
-        runs.append(serve_once(params, images[:n], backend, f"serve {backend}", card,
-                               per_step, plain=plain, tol=FLOAT_TOL))
+        label = "composed cuda_plan" if isinstance(backend, ComposedFloat) else f"serve {backend}"
+        runs.append(serve_once(params, images[:n], backend, label, card, per_step, plain=plain,
+                               tol=FLOAT_TOL))
     runs += phase_sweep(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)

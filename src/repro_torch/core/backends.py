@@ -24,14 +24,19 @@ Registered backends (the reference's name in brackets where it differs):
                 Keras counterpart; the conv and pool are the plain versions
                 of the float kernels
     plan        the same with the float PLAN sigmoid
-    cuda        [pallas] the hand-written float kernels: the conv with its
-                fused sigmoid epilogue and the max pool
-                (`kernels/conv2d`, `kernels/maxpool2d`); the output sigmoid
-                is `torch.sigmoid`, outside any kernel as in the reference;
-                matches `ref`
-    cuda_plan   [pallas_plan] the conv with the fused PLAN epilogue, the max
-                pool, and the `sigmoid_pla` kernel after the dense layer;
-                matches `plan`
+    cuda        [pallas] the hand-written float kernels: a served step is
+                one whole-net launch (`net_scores`, `float_smallnet`: both
+                convs, pools, the dense layer and the exact sigmoid) where
+                the kernel takes the images; other batches, and the frame
+                sweep, take the stages: the conv with its fused sigmoid
+                epilogue and the max pool (`kernels/conv2d`,
+                `kernels/maxpool2d`), the dense product, and
+                `torch.sigmoid` after it, outside any kernel as in the
+                reference; matches `ref`
+    cuda_plan   [pallas_plan] the same with PLAN: one whole-net launch a
+                served step; the stages are the conv with the fused PLAN
+                epilogue, the max pool, and the `sigmoid_pla` kernel after
+                the dense layer; matches `plan`
     fixed       the bit-faithful Qm.n two's-complement datapath (paper
                 §III-B) in PyTorch word ops — the plain versions of the
                 kernels, on whatever device the tensors live on
@@ -49,10 +54,11 @@ Registered backends (the reference's name in brackets where it differs):
                 (activations quantized per tensor, weights per channel)
                 through the `quant_matmul` kernel
 
-The dense product `x @ w` of the float backends stays `torch.matmul`, as
-the reference leaves it to XLA; PyTorch computes a float32 matmul in full
-float32 unless TF32 is switched on.  On CPU tensors every kernel wrapper
-runs its plain version.  `frame_trunk` is the whole-frame trunk of one
+The dense product `x @ w` of the float backends' stages stays
+`torch.matmul`, as the reference leaves it to XLA; PyTorch computes a
+float32 matmul in full float32 unless TF32 is switched on (the whole-net
+kernel sums it on the CUDA cores, in another order).  On CPU tensors
+every kernel wrapper runs its plain version.  `frame_trunk` is the whole-frame trunk of one
 frame in one step: `fixed` runs the untiled plain version
 (`frame_trunk_quad_plain`) and `fixed_cuda` launches the
 `csrc/frame_trunk.cu` kernel (its plain version on CPU tensors).  Both
@@ -61,9 +67,9 @@ cannot tile: a batch other than 1, an extent that is not a multiple of 4
 or is below 4, or a saturating config.  The float and int8 backends have
 no `frame_trunk`.  That is routing to the composed stages, not a fallback:
 on valid geometry a build or launch failure raises.  The same holds for
-the two hooks only `fixed_cuda` has, `net_scores` (the whole net, for
-the images its kernel takes) and `window_head` (the sweep's head): every
-other backend returns None and composes its stages.
+`net_scores` (the whole net, for the images its kernel takes: `fixed_cuda`,
+`cuda` and `cuda_plan`) and `window_head` (the sweep's head, `fixed_cuda`
+only): every other backend returns None and composes its stages.
 """
 from __future__ import annotations
 
@@ -75,7 +81,8 @@ import torch
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import ptq
 from repro_torch.core.device import as_device_tensor
-from repro_torch.kernels.conv2d.ops import conv2d, conv2d_plain
+from repro_torch.kernels.conv2d.ops import (conv2d, conv2d_plain, float_smallnet,
+                                            float_smallnet_fits)
 from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain,
                                                 fixed_maxpool2x2,
                                                 fixed_maxpool2x2_plain,
@@ -254,14 +261,37 @@ register_backend("plan", Backend(name="plan", sigmoid_fn=fxp.sigmoid_plan_f32))
 
 @dataclasses.dataclass(frozen=True)
 class CudaFloatBackend(Backend):
-    """Convs and pools through the hand-written float kernels (the
-    reference's `PallasBackend`).  `activation` selects the conv's fused
-    epilogue: "sigmoid" (matches `ref`) or "plan" (matches `plan`); the
-    activation after the dense layer is the matching one, the
-    `sigmoid_pla` kernel for "plan".  Per served step: two conv and two
-    pool launches (and one `sigmoid_pla` launch with "plan")."""
+    """The float net through the hand-written float kernels (the
+    reference's `PallasBackend`).  `activation` selects the activation:
+    "sigmoid" (matches `ref`) or "plan" (matches `plan`).  Per served
+    step: one whole-net launch (`float_smallnet`) for the images its kernel
+    takes.  Other batches, and the frame sweep's composed cascade, take the
+    stages: the conv with the activation as its fused epilogue, the pool,
+    the dense product and the matching output activation (the
+    `sigmoid_pla` kernel for "plan"); two conv and two pool launches a
+    step, and one `sigmoid_pla` launch with "plan"."""
     name: str = "cuda"
     activation: str = "sigmoid"
+
+    def net_scores(self, images, p):
+        """The `float_smallnet` kernel's scores for a (B,H,W,1) batch whose
+        (H/4)(W/4) pooled map is the dense layer's input, through 2x2
+        single-channel convs, and, on the card, whose images the kernel
+        takes (`float_smallnet_fits`: 4x4 up to about 170x170); None for any
+        other batch, which composes the stages.  A batch the kernel takes
+        never composes: a build or launch failure raises."""
+        if images.ndim != 4 or images.shape[3] != 1:
+            return None
+        if any(tuple(p[c]["w"].shape) != (2, 2, 1, 1) or p[c]["b"].numel() != 1
+               for c in ("conv1", "conv2")):
+            return None
+        H, W = images.shape[1:3]
+        K, N = p["dense"]["w"].shape
+        if (H // 4) * (W // 4) != K or (images.is_cuda and not float_smallnet_fits(H, W, N)):
+            return None
+        return float_smallnet(images.contiguous(), p["conv1"]["w"], p["conv1"]["b"],
+                              p["conv2"]["w"], p["conv2"]["b"], p["dense"]["w"],
+                              p["dense"]["b"], activation=self.activation)
 
     def conv2x2_same(self, x, w, b):
         return conv2d(x, w, b, padding="SAME")

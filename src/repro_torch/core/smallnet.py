@@ -92,13 +92,13 @@ def apply(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
     QuantTensors of `quantize_params_int8`).  Scores are float32 in (0, 1)
     on the float and int8 backends and Qm.n int32 words on the fixed ones;
     `predict` is the Max Finder over either.  A backend's `net_scores`
-    hook, where it gives scores, takes the whole forward (`fixed_cuda`:
-    one launch for the images its kernel takes); otherwise the stages
-    compose."""
+    hook, where it gives scores, takes the whole forward (`fixed_cuda`,
+    `cuda`, `cuda_plan`: one launch for the images its kernel takes);
+    otherwise the stages compose."""
     be = B.get_backend(backend)
     x = _images(images, device)
     p = be.prepare_params(params, x.device)
-    scores = be.net_scores(x, p)           # one launch on fixed_cuda
+    scores = be.net_scores(x, p)           # one launch on fixed_cuda, cuda, cuda_plan
     if scores is not None:
         return scores
     return be.sigmoid(_dense_preact(be, p, _conv_stages(be, p, x)))

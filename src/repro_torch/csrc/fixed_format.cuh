@@ -1,6 +1,7 @@
 // The word arithmetic of one Qm.n format, specialised at compile time, and
 // the dense-layer helpers built on it.  Shared by frame_trunk.cu,
-// fixed_dense.cu and fixed_net.cu.
+// fixed_dense.cu and fixed_net.cu (with staging.cuh, the shared-memory
+// staging they use).
 //
 // Word<kFrac, kTotal, kRound> is the arithmetic of one format.  The three
 // wraparound STANDARD_CONFIGS (Q16.16, Q16.16 truncating, Q8.8) have it at
@@ -31,30 +32,7 @@
 #include <cstdint>
 
 #include "fixed_word.cuh"
-
-// dynamic shared memory a block may opt in to on sm_90
-constexpr int kSmemMax = 227 * 1024;
-
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-
-// An asynchronous copy of one word (4 bytes) or one 16-byte vector into
-// shared memory: a thread issues its copies, commits them as a group
-// (`commit_copies`) and waits for them later (`wait_copies`), so a block's
-// loads are all in flight together
-__device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait for every group of copies this thread committed
-__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_group 0;\n" ::); }
+#include "staging.cuh"
 
 __device__ __forceinline__ int32_t max4(int32_t a, int32_t b, int32_t c, int32_t d) {
   return max(max(a, b), max(c, d));

@@ -13,11 +13,12 @@
 // per-stage kernels (csrc/fixed_conv.cu, csrc/fixed_dense.cu) stay for the
 // composed stages and the frame sweep.
 //
-// Design: a group of G warps takes one image at a time, G in {1, 2, 4, 8}
-// chosen per launch: 8 where the batch fits on the card at once (B=64: a
-// level-1 phase of one pass, the served step's latency), 1 at large
-// batches (B=16384: no thread of an image waits at a barrier for another
-// phase, each warp walks over images).  A block is 8 warps, 8/G groups;
+// Design (the layout and launch shape shared with float_net.cu are in
+// smallnet_plan.cuh): a group of G warps takes one image at a time, G in
+// {1, 2, 4, 8} chosen per launch: 8 where the batch fits on the card at
+// once (B=64: a level-1 phase of one pass, the served step's latency), 1
+// at large batches (B=16384: no thread of an image waits at a barrier for
+// another phase, each warp walks over images).  A block is 8 warps, 8/G groups;
 // the groups share the dense words (shared memory, loaded once per block),
 // the taps and biases sit in registers.  Group g of the grid takes images
 // g, g + groups, ...  Per image, in the group's own shared memory:
@@ -57,67 +58,14 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "fixed_format.cuh"
+#include "smallnet_plan.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;       // warps a block: 8/G groups of G warps
-constexpr int kGroupWarps[4] = {8, 4, 2, 1};   // the G a launch may take
-constexpr int kMaxExtent = 16384;              // past it no image fits anyway
-
-// The layout of one group's shared memory, in words: the image and the
-// level-1 map, each with a zero row below and zero columns right of the
-// map (row strides in whole 16-byte vectors), then the level-2 map
-struct Layout {
-  int ld0, ld1, buf, l1, words;
-  __host__ __device__ Layout(int H, int W) {
-    const int H1 = H / 2, W1 = W / 2;
-    ld0 = round4(W + 1);
-    ld1 = round4(W1 + 1);
-    buf = (H + 1) * ld0;
-    l1 = (H1 + 1) * ld1;
-    words = buf + l1 + round4((H1 / 2) * (W1 / 2));
-  }
-};
-
-// Shared memory of the kernel, in bytes: the dense words, then each
-// group's part
-long long smem_bytes(int H, int W, int N, int groups) {
-  const long long K = (H / 4) * (W / 4), n = N;
-  return 4 * ((K * n + 3) / 4 * 4 + (n + 3) / 4 * 4 + (long long)groups * Layout(H, W).words);
-}
-
-// The images the kernel takes: at least 4x4 (a dense input), and one
-// group's maps and the dense words within the shared memory (up to about
-// 170x170 words with N = 10)
-bool fits(int H, int W, int N) {
-  return H >= 4 && W >= 4 && N >= 1 && H <= kMaxExtent && W <= kMaxExtent &&
-         smem_bytes(H, W, N, 1) <= kSmemMax;
-}
-
-// A walk over the positions (r, c) of a map with `w` columns in steps of
-// `step` positions, from position `start`, without a division a step
-struct Walk {
-  int r, c, dr, dc, w;
-  __device__ Walk(int start, int step, int w_) : w(w_) {
-    r = start / w;
-    c = start - r * w;
-    dr = step / w;
-    dc = step - dr * w;
-  }
-  __device__ void next() {
-    r += dr;
-    c += dc;
-    if (c >= w) {
-      c -= w;
-      ++r;
-    }
-  }
-};
+using smallnet::kWarps;
+using smallnet::Layout;
 
 // The pooled conv word at pooled position (r, c) of a map `s` with row
 // stride `ld`: conv 2x2 SAME + PLAN at the four positions of its 2x2
@@ -141,27 +89,6 @@ __device__ __forceinline__ int32_t pooled_word(const F& f, const int32_t* s, int
                       f.mul(p[i + 1][j], w[2]) + f.mul(p[i + 1][j + 1], w[3]),
                       bias);
   return max4(y[0][0], y[0][1], y[1][0], y[1][1]);
-}
-
-// Thread t of a group of GT threads: its copies of one (H, W) image into
-// the padded buffer `dst`, committed as one group of copies; 16-byte
-// vectors where `vec`, words otherwise
-__device__ __forceinline__ void fetch_image(int32_t* dst, const int32_t* __restrict__ src,
-                                            int H, int W, int ld, int vec, int t, int GT) {
-  const int per_row = vec ? W / 4 : W, n = H * per_row;
-  Walk q(t, GT, per_row);
-  for (int i = t; i < n; i += GT, q.next()) {
-    if (vec) copy_async(dst + q.r * ld + 4 * q.c, src + q.r * W + 4 * q.c, 16);
-    else copy_async(dst + q.r * ld + q.c, src + q.r * W + q.c, 4);
-  }
-  commit_copies();
-}
-
-// The group's barrier: a warp's own, or named barrier 1 + group over its
-// GT threads (barrier 0 is __syncthreads')
-__device__ __forceinline__ void group_sync(int group, int GT) {
-  if (GT == 32) __syncwarp();
-  else asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(GT) : "memory");
 }
 
 template <int kFrac, int kTotal, int kRound>
@@ -196,7 +123,7 @@ fixed_smallnet_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__
 
   const long long stride = (long long)gridDim.x * groups;
   long long img = (long long)blockIdx.x * groups + group;
-  if (img < B) fetch_image(xs, x + img * H * W, H, W, L.ld0, vec, t, GT);
+  if (img < B) smallnet::fetch_image(xs, x + img * H * W, H, W, L.ld0, vec, t, GT);
   for (; img < B; img += stride) {
     // the image has arrived, and the previous image's dense layer is done
     // with l2 (level 2 writes it after the next barrier)
@@ -210,7 +137,8 @@ fixed_smallnet_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__
     group_sync(group, GT);
     // level 1 was the image's only reader: the next image's copies run
     // while this one's level 2 and dense layer are computed
-    if (img + stride < B) fetch_image(xs, x + (img + stride) * H * W, H, W, L.ld0, vec, t, GT);
+    if (img + stride < B)
+      smallnet::fetch_image(xs, x + (img + stride) * H * W, H, W, L.ld0, vec, t, GT);
     {
       Walk p(t, GT, W2);
       for (int i = t; i < K; i += GT, p.next())
@@ -229,79 +157,16 @@ fixed_smallnet_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__
   }
 }
 
-// What a launch of one format's kernel needs for (device, H, W, N), for
-// each G of kGroupWarps: its shared memory (0 where it does not fit) and
-// the blocks the card holds at once.  The SM count, the occupancy query
-// and the shared-memory opt-in are host calls that the served step would
-// otherwise pay every launch: each key asks them once, and then a launch
-// only picks G from B.
-struct Plan {
-  int bytes[4];
-  long long resident[4];
-};
-
-template <int kFrac, int kTotal, int kRound>
-cudaError_t plan_of(int device, int H, int W, int N, Plan& plan) {
-  const auto kernel = fixed_smallnet_kernel<kFrac, kTotal, kRound>;
-  static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int>, Plan> plans;
-  static std::map<int, long long> opted_in;    // per device: the shared memory allowed
-  const std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(device, H, W, N);
-  const auto it = plans.find(key);
-  if (it != plans.end()) {
-    plan = it->second;
-    return cudaSuccess;
-  }
-  int sms = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  for (int i = 0; i < 4; ++i) {
-    const long long bytes = smem_bytes(H, W, N, kWarps / kGroupWarps[i]);
-    plan.bytes[i] = 0;
-    plan.resident[i] = 0;
-    if (bytes > kSmemMax) continue;
-    long long& allowed = opted_in[device];       // only ever raised
-    if (bytes > 48 * 1024 && bytes > allowed) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (e != cudaSuccess) return e;
-      allowed = bytes;
-    }
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kWarps, (int)bytes);
-    if (e != cudaSuccess) return e;
-    plan.bytes[i] = (int)bytes;
-    plan.resident[i] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  }
-  plans.emplace(key, plan);
-  return cudaSuccess;
-}
-
 template <int kFrac, int kTotal, int kRound>
 int launch(const int32_t* x, const int32_t* w1, const int32_t* b1, const int32_t* w2,
            const int32_t* b2, const int32_t* wd, const int32_t* bd, int32_t* out, int B,
            int H, int W, int N, const FixedCfg& cfg, int device, cudaStream_t stream) {
-  if (!fits(H, W, N)) return kShapeUnsupported;
-  Plan plan;
-  const cudaError_t e = plan_of<kFrac, kTotal, kRound>(device, H, W, N, plan);
-  if (e != cudaSuccess) return (int)e;
-  // the most warps an image for which the whole batch is on the card at
-  // once; 1 where it is not
-  int G = 1, grid = 0, smem = 0;
-  for (int i = 0; i < 4; ++i) {
-    if (plan.bytes[i] == 0) continue;
-    const int groups = kWarps / kGroupWarps[i];
-    const long long need = ((long long)B + groups - 1) / groups;
-    G = kGroupWarps[i];
-    smem = plan.bytes[i];
-    grid = (int)(need < plan.resident[i] ? need : plan.resident[i]);
-    if (need <= plan.resident[i]) break;
-  }
-  int S = 1;                       // threads an output word
-  while (S < 32 && N * S * 2 <= 32 * G) S *= 2;
-  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && W % 4 == 0;
-  fixed_smallnet_kernel<kFrac, kTotal, kRound><<<grid, 32 * kWarps, smem, stream>>>(
-      x, w1, b1, w2, b2, wd, bd, out, B, H, W, N, G, S, vec, cfg);
+  const auto kernel = fixed_smallnet_kernel<kFrac, kTotal, kRound>;
+  smallnet::Shape s;
+  const int rc = smallnet::shape_of((const void*)kernel, device, x, B, H, W, N, s);
+  if (rc != 0) return rc;
+  kernel<<<s.grid, 32 * kWarps, s.smem, stream>>>(x, w1, b1, w2, b2, wd, bd, out, B, H, W, N,
+                                                   s.G, s.S, s.vec, cfg);
   return (int)cudaGetLastError();
 }
 
@@ -311,7 +176,7 @@ int launch(const int32_t* x, const int32_t* w1, const int32_t* b1, const int32_t
 //
 // fixed_smallnet_fits: 1 where the kernel takes (H, W) images and N
 // classes, 0 where it does not.
-extern "C" int fixed_smallnet_fits(int H, int W, int N) { return fits(H, W, N); }
+extern "C" int fixed_smallnet_fits(int H, int W, int N) { return smallnet::fits(H, W, N); }
 
 // fixed_smallnet_launch: makes `device` current for this thread, enqueues
 // one launch on `stream`, does not synchronise, and returns a CUDA error

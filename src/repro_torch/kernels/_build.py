@@ -35,7 +35,7 @@ from repro_torch.core import fixed_point as fxp
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fixed_conv", "fixed_dense", "fixed_net", "frame_trunk", "float_kernels",
-           "quant_matmul")                                 # csrc/<name>.cu
+           "float_net", "quant_matmul")                    # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,6 +85,11 @@ SIGNATURES = {
         "conv2d_launch": [_I, _P, _P, _P, _P] + [_I] * 11 + [_P],
         "maxpool2d_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
         "sigmoid_pla_launch": [_I, _P, _P, _LL, _P],
+        "conv2d_tile": [_I] * 9 + [_P],
+    },
+    "float_net": {
+        "float_smallnet_launch": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+        "float_smallnet_fits": [_I, _I, _I],
     },
     "quant_matmul": {
         "quant_matmul_dp4a_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

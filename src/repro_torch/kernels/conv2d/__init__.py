@@ -1,1 +1,3 @@
-from repro_torch.kernels.conv2d.ops import conv2d, conv2d_plain  # noqa: F401
+from repro_torch.kernels.conv2d.ops import (conv2d, conv2d_plain, conv2d_tile,  # noqa: F401
+                                            float_smallnet, float_smallnet_fits,
+                                            float_smallnet_plain)

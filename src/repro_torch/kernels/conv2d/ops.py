@@ -1,5 +1,5 @@
-"""Float NHWC conv with a fused bias and activation: the CUDA kernel and its
-plain version.
+"""Float NHWC conv with a fused bias and activation, and the whole float
+smallNet step: the CUDA kernels and their plain versions.
 
 Port of `repro.kernels.conv2d` (`ops.py` wrapper, `kernel.py`
 `conv2d_pallas`, `ref.py`).  `conv2d` sends CPU tensors to `conv2d_plain`
@@ -18,16 +18,26 @@ Semantics are the reference's:
     "sigmoid").
 
 The reference checks its image block against a 14 MB TPU VMEM budget
-(`_VMEM_BUDGET`).  The kernel here keeps no image resident (one thread
-per output, SAME's padding read as zero taps), so there is no such limit
-and no guard.
+(`_VMEM_BUDGET`).  The kernel stages a tile of output pixels with its input
+halo in shared memory, sized by its launcher (`conv2d_tile`), and a conv
+whose single-pixel tile does not fit takes the launcher's direct kernel,
+so there is no such limit and no guard.
 
-The plain version computes each tap's shifted window times its weights
-with elementwise ops, summed in the kernel's order.  It does not call
+`float_smallnet` is the served step of the float backends (`cuda`,
+`cuda_plan`) in one launch of `csrc/float_net.cu`: conv + activation + max
+pool twice, the dense layer and its activation, as the composed route
+computes them; `float_smallnet_fits` asks its launcher which images it
+takes.
+
+The plain versions compute each tap's shifted window times its weights
+with elementwise ops, summed in the kernel's order.  They do not call
 `F.conv2d`: on a CUDA float32 tensor cuDNN computes in TF32 by default,
 about 1e-3 off.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.core.fixed_point import sigmoid_plan_f32
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_tensor, stream_of
+from repro_torch.kernels.maxpool2d.ops import maxpool2d_plain
 
 _ACTIVATIONS = (None, "sigmoid", "plan")
 _ACT_CODE = {None: 0, "sigmoid": 1, "plan": 2}
@@ -122,4 +133,90 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
                            stride, _ACT_CODE[activation], stream)
     _build.check(lib, rc, "conv2d")
     LAUNCHES["conv2d"] += 1
+    return out
+
+
+def conv2d_tile(x_shape, w_shape, *, stride: int = 1, padding: str = "SAME") -> dict | None:
+    """The tile `conv2d`'s launcher takes for a conv of these shapes, as it
+    decides it (the library is built on first use): output rows "TH" and
+    columns "TW" a block stages, output rows "PR" a thread, output channels
+    "CC" a block and "V" a thread, shared-memory "bytes"; None where it
+    takes the direct kernel."""
+    _, _, Ho, Wo = _geometry(x_shape, w_shape, stride, padding)
+    tile = (ctypes.c_int * 6)()
+    lib = _build.library("float_kernels")
+    if not lib.conv2d_tile(x_shape[1], x_shape[2], x_shape[3], w_shape[0], w_shape[1],
+                           w_shape[3], Ho, Wo, stride, tile):
+        return None
+    return dict(zip(("TH", "TW", "PR", "CC", "V", "bytes"), tile))
+
+
+# -- the whole float net ----------------------------------------------------------
+
+_NET_ACTIVATIONS = ("sigmoid", "plan")
+
+
+@functools.lru_cache(maxsize=64)
+def float_smallnet_fits(H: int, W: int, N: int) -> bool:
+    """Whether the whole-net kernel takes (H, W) images and N classes, as
+    its launcher decides it (the library is built on first use): at least
+    4x4 (a dense input), and an image group's maps and the dense weights
+    within the shared memory (up to about 170x170 with N = 10)."""
+    return bool(_build.library("float_net").float_smallnet_fits(H, W, N))
+
+
+def _net_args(x, c1w, c1b, c2w, c2b, dw, db, activation) -> None:
+    if activation not in _NET_ACTIVATIONS:
+        raise ValueError(f"activation must be one of {_NET_ACTIVATIONS}")
+    require_tensor("float_smallnet x", x, _F32, ndim=4)
+    if x.shape[3] != 1:
+        raise ValueError(f"float_smallnet: x {tuple(x.shape)} must have one channel")
+    for name, t, n in (("c1w", c1w, 4), ("c1b", c1b, 1), ("c2w", c2w, 4), ("c2b", c2b, 1)):
+        require_tensor(f"float_smallnet {name}", t, _F32, numel=n)
+    require_tensor("float_smallnet dw", dw, _F32, ndim=2)
+    _, H, W, _ = x.shape
+    K, N = dw.shape
+    if K != (H // 4) * (W // 4):
+        raise ValueError(f"float_smallnet: dw {tuple(dw.shape)} does not take the "
+                         f"{H // 4}x{W // 4} pooled map of {H}x{W} images")
+    require_tensor("float_smallnet db", db, _F32, numel=N)
+
+
+def float_smallnet_plain(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
+                         c2w: torch.Tensor, c2b: torch.Tensor, dw: torch.Tensor,
+                         db: torch.Tensor, *, activation: str = "sigmoid") -> torch.Tensor:
+    """conv + activation + pool twice, flatten, the dense layer, the
+    activation: the plain stages composed, as the `ref` ("sigmoid") and
+    `plan` ("plan") backends compute them."""
+    y = maxpool2d_plain(conv2d_plain(x, c1w.reshape(2, 2, 1, 1), c1b, activation=activation))
+    y = maxpool2d_plain(conv2d_plain(y, c2w.reshape(2, 2, 1, 1), c2b, activation=activation))
+    scores = y.reshape(y.shape[0], -1) @ dw + db
+    return torch.sigmoid(scores) if activation == "sigmoid" else sigmoid_plan_f32(scores)
+
+
+def float_smallnet(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
+                   c2w: torch.Tensor, c2b: torch.Tensor, dw: torch.Tensor,
+                   db: torch.Tensor, *, activation: str = "sigmoid") -> torch.Tensor:
+    """The whole float smallNet forward: x (B,H,W,1) float32 images, conv
+    taps c1w, c2w (the (2,2,1,1) params), conv biases c1b, c2b (1,), dense
+    dw ((H/4)(W/4), N) and db (N,) -> (B,N) scores, with one activation
+    everywhere: "sigmoid" (the exact one) or "plan".  The kernel takes the
+    images `float_smallnet_fits` allows and raises ValueError for any
+    other; the plain version takes any."""
+    _net_args(x, c1w, c1b, c2w, c2b, dw, db, activation)
+    if not on_cuda(x, c1w, c1b, c2w, c2b, dw, db):
+        return float_smallnet_plain(x, c1w, c1b, c2w, c2b, dw, db, activation=activation)
+    B, H, W, _ = x.shape
+    N = dw.shape[1]
+    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("float_net")
+    dev, stream = stream_of(x)
+    rc = lib.float_smallnet_launch(dev, x.data_ptr(), c1w.data_ptr(), c1b.data_ptr(),
+                                   c2w.data_ptr(), c2b.data_ptr(), dw.data_ptr(),
+                                   db.data_ptr(), out.data_ptr(), B, H, W, N,
+                                   _ACT_CODE[activation], stream)
+    _build.check(lib, rc, f"float_smallnet {H}x{W} images, {N} classes")
+    LAUNCHES["float_smallnet"] += 1
     return out

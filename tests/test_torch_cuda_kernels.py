@@ -3,9 +3,12 @@
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  They import no JAX, so they run on the GPU machine as they
 are:  PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
-The new routes: the whole-net `fixed_smallnet` at B = 1, 63, 64 and 16384,
-`fixed_dense` on its rows and generic routes, and `fixed_window_head` at
-112x112, 56x84 and 1080x1920 frames, each in all five formats.
+The whole-net routes: `fixed_smallnet` at B = 1, 63, 64 and 16384 in all
+five formats and `float_smallnet` at the same batches with both
+activations; `fixed_dense` on its rows and generic routes;
+`fixed_window_head` at 112x112, 56x84 and 1080x1920 frames; the tiled
+`conv2d` at its tile edges, and the direct kernel it keeps for convs no
+tile fits.
 Tolerances: Qm.n words, max-pooled floats, PLAN floats and quant_matmul's
 int32 sums must be equal (0); the float conv within rtol = atol = 2e-5
 (nvcc contracts its multiply-adds into FMAs, and its sigmoid is
@@ -171,8 +174,8 @@ def test_quant_matmul_is_exact_on_every_route_on_card(cuda, M, K, N, route):
 
 
 @pytest.mark.parametrize("backend,plain,per_step", [
-    ("cuda", "ref", {"conv2d": 2, "maxpool2d": 2}),
-    ("cuda_plan", "plan", {"conv2d": 2, "maxpool2d": 2, "sigmoid_pla": 1}),
+    ("cuda", "ref", {"float_smallnet": 1}),              # the served step, one launch
+    ("cuda_plan", "plan", {"float_smallnet": 1}),
     ("int8", "int8", {"quant_matmul": 1}),
 ])
 def test_float_and_int8_apply_match_cpu_on_card(cuda, backend, plain, per_step):
@@ -308,3 +311,108 @@ def test_window_past_the_maps_traps_on_card(cuda):
     out = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode != 0 and "no error" not in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("activation,per_step", [
+    ("sigmoid", {"conv2d": 2, "maxpool2d": 2}),
+    ("plan", {"conv2d": 2, "maxpool2d": 2, "sigmoid_pla": 1}),
+])
+def test_composed_float_step_launches_on_card(cuda, activation, per_step):
+    """Without its whole-net launch a float step composes the per-stage
+    kernels, with the same scores within 2e-5."""
+    import dataclasses
+
+    @dataclasses.dataclass(frozen=True)
+    class Composed(TB.CudaFloatBackend):
+        name: str = "cuda_composed"
+
+        def net_scores(self, images, p):
+            return None
+
+    params = {k: {n: torch.tensor(a, dtype=torch.float32, device=cuda) for n, a in v.items()}
+              for k, v in _numpy_params(5).items()}
+    images = torch.from_numpy(synth_mnist.make_dataset(64, seed=6)[0]).to(cuda)
+    be = Composed(activation=activation)
+    reset_launches()
+    got = smallnet.apply(params, images, backend=be)
+    assert launches() == per_step
+    whole = smallnet.apply(params, images, backend=TB.CudaFloatBackend(activation=activation))
+    torch.testing.assert_close(got, whole, rtol=2e-5, atol=2e-5)
+
+
+def _float_net_args(rng, B, H, W, N, device):
+    K = (H // 4) * (W // 4)
+    shapes = ((B, H, W, 1), (2, 2, 1, 1), (1,), (2, 2, 1, 1), (1,), (K, N), (N,))
+    scales = (1.0, 0.8, 0.5, 0.8, 0.5, 0.3, 0.5)
+    return [torch.from_numpy((rng.normal(size=s) * c).astype(np.float32)).to(device)
+            for s, c in zip(shapes, scales)]
+
+
+@pytest.mark.parametrize("activation", ["sigmoid", "plan"])
+@pytest.mark.parametrize("B,H,W,N", [(1, 28, 28, 10), (63, 28, 28, 10), (64, 28, 28, 10),
+                                     (16384, 28, 28, 10), (3, 37, 53, 10), (2, 32, 24, 10)])
+def test_float_smallnet_matches_plain_on_card(cuda, activation, B, H, W, N):
+    from repro_torch.kernels.conv2d import float_smallnet, float_smallnet_plain
+    args = _float_net_args(np.random.default_rng(B + H), B, H, W, N, cuda)
+    reset_launches()
+    got = float_smallnet(*args, activation=activation)
+    assert launches() == {"float_smallnet": 1}
+    torch.testing.assert_close(got, float_smallnet_plain(*args, activation=activation),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_float_smallnet_fits_on_card(cuda):
+    """`float_smallnet_fits` is the launcher's own rule, and the wrapper
+    raises ValueError where it says no; `net_scores` then composes."""
+    from repro_torch.kernels.conv2d import float_smallnet, float_smallnet_fits
+    assert float_smallnet_fits(28, 28, 10) and float_smallnet_fits(4, 4, 1)
+    assert not float_smallnet_fits(200, 200, 10) and not float_smallnet_fits(3, 28, 10)
+    z = lambda *s: torch.zeros(s, device=cuda)          # noqa: E731
+    with pytest.raises(ValueError, match="cannot take"):
+        float_smallnet(z(1, 200, 200, 1), z(2, 2, 1, 1), z(1), z(2, 2, 1, 1), z(1), z(2500, 10),
+                       z(10))
+    be = TB.get_backend("cuda_plan")
+    big = be.prepare_params({"conv1": {"w": z(2, 2, 1, 1), "b": z(1)},
+                             "conv2": {"w": z(2, 2, 1, 1), "b": z(1)},
+                             "dense": {"w": z(2500, 10), "b": z(10)}}, cuda)
+    assert be.net_scores(z(1, 200, 200, 1), big) is None
+
+
+@pytest.mark.parametrize("B,H,W,ci,co,kh,kw,pad,stride", [
+    (2, 37, 53, 3, 17, 2, 2, "SAME", 1),       # extents off the tile, Cin 3, Cout 17
+    (1, 41, 35, 3, 16, 3, 3, "SAME", 3),       # stride 3, Cout 16 (four a thread)
+    (1, 41, 35, 3, 3, 3, 3, "VALID", 3),       # Cout 3
+    (3, 29, 31, 1, 3, 2, 2, "SAME", 2),
+    (2, 37, 53, 1, 1, 2, 2, "SAME", 1),        # Cout 1, 4-byte copies
+    (16384, 28, 28, 1, 1, 2, 2, "SAME", 1),    # a large batch of served images
+    (1, 512, 512, 1, 16, 2, 2, "SAME", 2),
+    (1, 5, 6, 1100, 4, 2, 2, "SAME", 1),       # no tile fits: the direct kernel
+])
+def test_tiled_conv2d_matches_plain_on_card(cuda, B, H, W, ci, co, kh, kw, pad, stride):
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d import conv2d_tile
+    rng = np.random.default_rng(H + W + co)
+    x = torch.from_numpy(rng.normal(size=(B, H, W, ci)).astype(np.float32) * 3).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(kh, kw, ci, co)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.normal(size=(co,)).astype(np.float32)).to(cuda)
+    if ci > 64:     # thousands of products a sum, in cuDNN's own order: positive terms
+        x, w = x.abs(), w.abs()
+    assert (conv2d_tile(x.shape, w.shape, stride=stride, padding=pad) is None) == (ci == 1100)
+    for act in (None, "sigmoid", "plan"):
+        kw_ = dict(padding=pad, stride=stride, activation=act)
+        reset_launches()
+        got = conv2d(x, w, b, **kw_)
+        assert launches() == {"conv2d": 1}
+        torch.testing.assert_close(got, conv2d_plain(x, w, b, **kw_), rtol=2e-5, atol=2e-5)
+    # F.conv2d in full float32, SAME's bottom/right zeros padded explicitly
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xc = x.permute(0, 3, 1, 2)
+        if pad == "SAME":
+            xc = F.pad(xc, (0, kw - 1, 0, kh - 1))
+        lib = F.conv2d(xc, w.permute(3, 2, 0, 1), b, stride=stride).permute(0, 2, 3, 1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    torch.testing.assert_close(conv2d(x, w, b, padding=pad, stride=stride), lib,
+                               rtol=2e-5, atol=2e-5)

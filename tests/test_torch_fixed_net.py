@@ -114,7 +114,9 @@ def test_whole_net_matches_jax_apply(mnist, cfg_name, images):
 def test_net_scores_hook_takes_only_the_served_shape():
     """The hook takes a (B,H,W,1) batch whose (H/4)(W/4) pooled map is the
     dense layer's 49 inputs (28x28 served images, and 28x30 or 31x29 ones
-    too), with the composed stages' words; None for any other batch."""
+    too), with the composed stages' words; None for any other batch.  Of
+    the other backends only the float kernels' (`cuda`, `cuda_plan`) have
+    a whole-net route."""
     params = params_from_jax(numpy_params(), "cpu")
     cuda = TB.get_backend("fixed_cuda")
     p = cuda.prepare_params(params, "cpu")
@@ -128,9 +130,13 @@ def test_net_scores_hook_takes_only_the_served_shape():
     for shape in ((2, 32, 32, 1), (2, 28, 28), (2, 27, 28, 1), (2, 28, 28, 2)):
         assert cuda.net_scores(torch.zeros(shape), p) is None
     x = torch.from_numpy(j_synth.make_dataset(3, seed=4)[0])
-    for name in ("fixed", "ref", "plan", "cuda", "cuda_plan", "int8"):
+    for name in ("fixed", "ref", "plan", "int8"):
         be = TB.get_backend(name)
         assert be.net_scores(x, be.prepare_params(params, "cpu")) is None
+    for name in ("cuda", "cuda_plan"):       # the float whole-net route: float scores
+        be = TB.get_backend(name)
+        got = be.net_scores(x, be.prepare_params(params, "cpu"))
+        assert got.dtype == torch.float32 and got.shape == (3, 10)
 
 
 @pytest.mark.parametrize("B,H,W,N", [(3, 37, 53, 10), (2, 9, 8, 16), (1, 4, 4, 1),
