@@ -26,7 +26,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   kernel    per kernel: the kernel against its plain PyTorch version on the
             card (torch.equal on int32 words) in all five configs, at the
             engine's shapes (B=64) and at large shapes (B=16384 images, a
-            512x512 frame, odd extents, stride 2), with random words that
+            512x512 frame, odd extents, stride 2; fixed_sigmoid at 2^24
+            words, bytes-bound), with random words that
             include max_int, min_int and INT32_MIN; then its median time
             (CUDA events), its bound, the plain version's time and, where one
             PyTorch call computes the same function, that call's time.
@@ -52,7 +53,7 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             int8 kernels: sigmoid_pla (torch.equal, shapes up to 2^24
             words, the breakpoints, +-0.0 and their float neighbours),
             maxpool2d (torch.equal in float32 and bfloat16, odd extents,
-            NaN), conv2d (allclose 2e-5 and F.conv2d with TF32 off: the
+            NaN; timed at (16384,28,28,1) too, bytes-bound), conv2d (allclose 2e-5 and F.conv2d with TF32 off: the
             reference's six test shapes, each activation at the engine's
             shapes, a 512x512 stride-2 frame, the tiled kernel's edges
             (extents off the tile, Cout 1, 3, 16, 17, Cin 3, stride 3), a
@@ -85,6 +86,34 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             engine (cuda_plan without its whole-net launch, 256 requests)
             keeps 2 conv2d + 2 maxpool2d + 1 sigmoid_pla a step on a served
             path
+  train     deploy.train_smallnet(n_train=8000, n_test=2000, epochs=16,
+            seed=0) on the card (autograd over the `ref` backend's plain ops,
+            Adam; accuracy scored on `cuda`): wall seconds, steps/s, loss,
+            train/test accuracy, test accuracy >= 0.80
+  ladder    evaluate_all_paths(trained params, n_test=2000) through the
+            kernel backends (1 float_smallnet, fixed_smallnet or
+            quant_matmul launch a batch of 256), the same on the CPU (the
+            plain versions): Q16.16 and int8 accuracies equal, the float
+            keys' per-image Max Finder equal except at the CPU's near ties
+            (top two within 2e-5, counted); Q16.16 and int8 within 0.06 of
+            the float PLAN path; each path's distance below float32 printed
+  latency   deploy.measure_latency of bake'd Q16.16 (fixed_cuda) and
+            cuda_plan steps at batch 1 and 64
+  router    ReplicaRouter.from_backends(trained params, [fixed_cuda,
+            fixed_cuda, cuda_plan], batch_size=64, policy="slo",
+            slo_ms=50): first its capacity (4096 requests submitted at
+            once, drained closed loop), then LoadGen open loop: Poisson
+            requests at 1/8, 1/4 and half that capacity (2048, 2048, 4096)
+            and 4096 bursty ones at twice it (the serve phase's Q16.16 engine rate printed beside:
+            the fleet's host work caps it far below); then a failover run (a replica whose first
+            step raises, placed first) and an autoscale run (one replica, a
+            spawn factory, the bursty schedule in 10 ms waves with
+            autoscale() between them, then idle checks).  Each: fleet
+            requests/s over the wall, p50/p99, goodput, sheds by reason; the
+            fleet ledger accounted, every request served or shed, every
+            served result equal to its replica backend's CPU counterpart
+            (Q16.16 words exact, cuda_plan within 2e-5), launches equal to
+            the replicas' steps
   sweep     StreamingPipeline(SyntheticVideoSource(seed=7, 112x112, 64
             frames), VisionEngine(backend="fixed_cuda", device="cuda"),
             FcnSweep(stride=8)) in throughput mode, in Q16.16 and Q8.8: each
@@ -107,8 +136,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   profile   a torch.profiler trace of 16 served steps, then one of 16 sweep
             frames at 112x112: device busy share and device time by kernel
   kernels   one line listing every ported kernel (launches counted on the
-            serve, composed and sweep paths, reset to 0 before each and read
-            after)
+            serve, composed, train, ladder, latency, router and sweep paths,
+            reset to 0 before each and read after)
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.  Any
 mismatch or failure raises; without CUDA, or outside a checkout of the
@@ -145,6 +174,16 @@ SWEEP_FRAMES = 64
 SWEEP_STRIDE = 8
 CAMERA = (1080, 1920)
 CAMERA_FRAMES = 4
+# bursty traffic's on/off windows, scaled to a run of 4096 requests at
+# tens of thousands a second (LoadGen's defaults, 0.25 s on and 0.75 s
+# off, outlast such a run); duty 0.25 as the defaults
+BURSTS = {"burst_on_s": 0.02, "burst_off_s": 0.06}
+# the router phase's bars: the fleet's closed-loop rate as a share of one
+# Q16.16 engine's wall rate, and goodput and p50 open loop at an eighth of
+# the fleet's capacity
+CAPACITY_FLOOR = 0.3
+MIN_GOODPUT = 0.95
+MAX_P50_MS = 10.0
 SATURATING = ("q16_16", "q16_16_sat", "q8_8_sat")   # a case timed in these formats too
 
 KERNELS = {
@@ -340,6 +379,8 @@ def kernel_cases():
             ("engine (64,10)", *sigmoid(E, 10), "engine"),
             ("large (16384,10)", *sigmoid(L, 10), "large"),
             ("frame (512,512)", *sigmoid(512, 512), "large"),
+            # 134 MB moved: a shape where the bytes, not the launch, set the bound
+            ("bytes-bound (2^24,)", *sigmoid(1 << 24), "large"),
         ],
         # the launcher takes the rows route where N <= 16 and the rows fit
         # the shared memory, the generic route elsewhere
@@ -1060,6 +1101,16 @@ def phase_float_kernels(card: str) -> dict:
     shapes.append(timed("frame (1,512,512,1)", lambda: maxpool2d(x),
                         lambda: maxpool2d_plain(x), lambda: lib_pool(x),
                         (4 * 5 * 256 * 256, 3 * 256 * 256), F32_FLOPS_PER_S, 50, "large"))
+    # 64.2 MB moved: a shape where the bytes, not the launch, set the bound
+    x = normal((LARGE_BATCH, 28, 28, 1))
+    got = maxpool2d(x)
+    expect(torch.equal(got, maxpool2d_plain(x)) and torch.equal(lib_pool(x), got),
+           f"maxpool2d ({LARGE_BATCH},28,28,1): kernel, plain and F.max_pool2d differ")
+    n_checked += 1
+    n_out = LARGE_BATCH * 14 * 14
+    shapes.append(timed(f"bytes-bound ({LARGE_BATCH},28,28,1)", lambda: maxpool2d(x),
+                        lambda: maxpool2d_plain(x), lambda: lib_pool(x),
+                        (4 * (4 * n_out + n_out), 3 * n_out), F32_FLOPS_PER_S, 50, "large"))
     table["maxpool2d"] = row("maxpool2d", shapes, 0.0, n_checked,
                              "F.max_pool2d(kernel 2) on the NCHW view")
 
@@ -1253,7 +1304,8 @@ def serve_once(params, images, backend, label, card, want_per_step, *, plain=Non
     `params`; check the scores against `plain` (default: the plain `fixed`
     backend in the engine's format) on the CPU over the same formed batches
     (int8 quantizes its activations per batch), equal words where `tol` is
-    0; check the ledger and the launch counts; return the counts."""
+    0; check the ledger and the launch counts; return the counts and the
+    requests per second over the client's wall window."""
     import collections
 
     import numpy as np
@@ -1339,7 +1391,362 @@ def serve_once(params, images, backend, label, card, want_per_step, *, plain=Non
          latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
          batch_occupancy=st["batch_occupancy"],
          distinct_preds=int(len(set(preds.tolist()))), card=card)
-    return counts
+    return counts, st["n"] / wall_s
+
+
+# -- training, the accuracy ladder, the router ---------------------------------------
+
+def train_params_numpy(params) -> dict:
+    return {layer: {leaf: t.detach().cpu().numpy() for leaf, t in leaves.items()}
+            for layer, leaves in params.items()}
+
+
+def phase_train(card: str) -> tuple[dict, list[dict]]:
+    """The paper's flow on the card: `deploy.train_smallnet` at the sizes of
+    benchmarks/accuracy_table.py (autograd over the `ref` backend's plain
+    ops, Adam; train and test accuracy scored on `cuda`), the four-path
+    ladder of `evaluate_all_paths` through the kernel backends, the same
+    ladder on the CPU (the plain versions) with the same params, and
+    `measure_latency` of `bake`d Q16.16 and `cuda_plan` steps.  Returns the
+    trained params (numpy) and the launch counts of each driven part."""
+    import math
+
+    import torch
+    from repro_torch.core import deploy, smallnet
+    from repro_torch.data import synth_mnist
+    from repro_torch.kernels import launches, reset_launches
+
+    n_train, n_test, epochs = 8000, 2000, 16
+    runs = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = deploy.train_smallnet(n_train=n_train, n_test=n_test, epochs=epochs, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = launches()
+    runs.append(counts)
+    steps = len(trained.history)
+    expect(steps == epochs * (n_train // 64) and all(map(math.isfinite, trained.history)),
+           f"train: {steps} steps, history finite: {all(map(math.isfinite, trained.history))}")
+    # train and test accuracy: ceil(8000/256) + ceil(2000/256) float_smallnet launches
+    expect(counts == {"float_smallnet": 32 + 8}, f"train: launches {counts}")
+    emit("train", n_train=n_train, n_test=n_test, epochs=epochs, steps=steps,
+         wall_s=train_s, steps_per_s=steps / train_s, loss_first=trained.history[0],
+         loss_final=trained.history[-1], train_acc=trained.train_acc,
+         test_acc=trained.test_acc, launches=counts, card=card)
+    expect(trained.test_acc >= 0.80, f"train: test accuracy {trained.test_acc} < 0.80")
+
+    reset_launches()
+    accs = deploy.evaluate_all_paths(trained.params, n_test=n_test)
+    counts = launches()
+    runs.append(counts)
+    # 8 batches of at most 256: one launch a batch on each path's kernel backend
+    expect(counts == {"float_smallnet": 16, "fixed_smallnet": 8, "quant_matmul": 8},
+           f"ladder: launches {counts}")
+    # the quantized paths against the float net with the same PLAN activation:
+    # within 0.06 (the reference's ladder bar).  Against float32 the PLAN
+    # step is reported, not held: its size is the init draw's.  From one
+    # draw the two packages train to the same ladder (tests/test_torch_deploy.py::
+    # test_training_from_one_init_gives_the_reference_ladder), and the
+    # port draws its init with a torch.Generator, not jax.random
+    for key in ("fixed_q16_16", "int8_ptq"):
+        expect(accs[key] >= accs["float32_plan_sigmoid"] - 0.06,
+               f"ladder: {key} {accs[key]} more than 0.06 below float32_plan_sigmoid "
+               f"{accs['float32_plan_sigmoid']}")
+    expect(min(accs.values()) >= 0.5, f"ladder: a path near chance {accs}")
+    params_np = train_params_numpy(trained.params)
+    cpu_params = params_on(params_np, "cpu")
+    accs_cpu = deploy.evaluate_all_paths(cpu_params, n_test=n_test, device="cpu")
+    for key in ("fixed_q16_16", "int8_ptq"):
+        expect(accs[key] == accs_cpu[key],
+               f"ladder: {key} {accs[key]} on the card, {accs_cpu[key]} on the CPU")
+    # the float keys: per image, the card's Max Finder against the CPU's,
+    # equal except where the CPU's top two scores lie within FLOAT_TOL
+    xte, yte = synth_mnist.make_dataset(n_test, seed=1)
+    float_keys = {}
+    for key, be in (("float32", "cuda"), ("float32_plan_sigmoid", "cuda_plan")):
+        with torch.inference_mode():
+            dev_scores = torch.cat([smallnet.apply(trained.params, torch.from_numpy(
+                xte[i:i + 256]).cuda(), backend=be).cpu() for i in range(0, n_test, 256)])
+            cpu_scores = smallnet.apply(cpu_params, torch.from_numpy(xte), backend=be)
+        compare_scores(dev_scores.numpy(), cpu_scores.numpy(), FLOAT_TOL, f"ladder {key}")
+        dev_pred, cpu_pred = smallnet.predict(dev_scores), smallnet.predict(cpu_scores)
+        expect(float((dev_pred.numpy() == yte).mean()) == accs[key],
+               f"ladder {key}: per-image predictions disagree with evaluate_all_paths")
+        top2 = cpu_scores.sort(dim=-1).values[:, -2:]
+        near = (top2[:, 1] - top2[:, 0]) <= FLOAT_TOL
+        differ = dev_pred != cpu_pred
+        expect(bool(near[differ].all()),
+               f"ladder {key}: {int((differ & ~near).sum())} images differ off a near tie")
+        float_keys[key] = {"images_differing": int(differ.sum()),
+                           "near_ties_on_cpu": int(near.sum())}
+    emit("ladder", n_test=n_test, card_accuracy=accs, cpu_accuracy=accs_cpu,
+         below_float32={k: accs["float32"] - v for k, v in accs.items() if k != "float32"},
+         within_0_06_of_float32=all(v >= accs["float32"] - 0.06 for v in accs.values()),
+         float_keys=float_keys, launches=counts, card=card)
+
+    qfix = smallnet.quantize_params_fixed(trained.params)
+    x64 = torch.from_numpy(xte[:64]).cuda()
+    latency, iters = {}, 200
+    for name, baked, be, p in (
+            ("fixed_q16_16", deploy.bake(lambda q, x: smallnet.apply(q, x, backend="fixed_cuda"),
+                                         qfix), "fixed_cuda", qfix),
+            ("cuda_plan", deploy.bake(lambda q, x: smallnet.apply(q, x, backend="cuda_plan"),
+                                      trained.params), "cuda_plan", trained.params)):
+        with torch.inference_mode():
+            expect(torch.equal(baked(x64), smallnet.apply(p, x64, backend=be)),
+                   f"bake {name}: differs from apply")
+        reset_launches()
+        for batch in (1, 64):
+            latency[f"{name} batch {batch}"] = deploy.measure_latency(
+                lambda _, x, baked=baked: baked(x), None, batch=batch, iters=iters) * 1e3
+        counts = launches()
+        runs.append(counts)
+        kernel = "fixed_smallnet" if be == "fixed_cuda" else "float_smallnet"
+        expect(counts == {kernel: 2 * (iters + 1)}, f"bake {name}: launches {counts}")
+    emit("latency", what="deploy.measure_latency of bake'd steps, ms a call (each waited for)",
+         iters=iters, ms=latency, card=card)
+    return params_np, runs
+
+
+def phase_router(card: str, params_np: dict, q16_wall_qps: float) -> list[dict]:
+    """`ReplicaRouter` over the port's engines on the card, with the trained
+    params: two Q16.16 replicas and a `cuda_plan` one under the slo policy
+    (slo_ms 50).  First the fleet's own capacity: 4096 requests submitted
+    at once and drained closed loop; it must reach CAPACITY_FLOOR of the
+    Q16.16 engine's wall rate from the serve phase.  Then `LoadGen` open
+    loop: Poisson at 1/8 of the fleet's capacity, with goodput at least
+    MIN_GOODPUT and p50 at most MAX_P50_MS; at 1/4 and half of it, at half the Q16.16 engine's rate,
+    and bursty at twice that, printed, not held (the fleet's open-loop
+    rate is host-bound below its closed-loop one, `PERF.md` §5); then a
+    failover run (a replica whose first step raises) and
+    an autoscale run (one replica, a spawn factory, the bursty schedule in
+    waves with `autoscale()` between them, as the reference's harness
+    drives it).  Every request ends served or shed, the fleet ledger holds,
+    and every served result equals its replica backend's plain counterpart
+    on the CPU (Q16.16 words exact, `cuda_plan` within FLOAT_TOL).  Returns
+    the launch counts of each run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import backends as B
+    from repro_torch.core import smallnet
+    from repro_torch.data import synth_mnist
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving.router import ReplicaRouter
+    from repro_torch.serving.vision_engine import VisionEngine
+    from repro_torch.streaming.loadgen import LoadGen
+
+    kernel_of = {"fixed_cuda": "fixed_smallnet", "cuda_plan": "float_smallnet"}
+    plain_of = {"fixed_cuda": "fixed", "cuda_plan": "plan"}
+    params = params_on(params_np, "cuda")
+    cpu_params = params_on(params_np, "cpu")
+    fired = []
+
+    @dataclasses.dataclass(frozen=True)
+    class FaultyOnce(B.FixedCudaBackend):
+        """fixed_cuda whose first whole-net step raises (an injected fault)."""
+        name: str = "fixed_cuda"
+
+        def net_scores(self, images, p):
+            if not fired:
+                fired.append(True)
+                raise RuntimeError("injected fault: this replica's first step")
+            return super().net_scores(images, p)
+
+    def warm_up(router, images):
+        """One batch a replica through the fleet, so the slo door starts
+        from observed service rates (a cold fleet door-sheds any backlog
+        past one batch a replica); returns the warm-up's uids."""
+        uids = router.submit_many(list(images[:ENGINE_BATCH * len(router.replicas)]))
+        router.run()
+        return uids
+
+    def check(label, router, gen, payload, uids, wall_s, counts, spawned=0, n_warm=0):
+        """`payload[uid]` is the image the router's request `uid` carried;
+        the first `n_warm` requests warmed the fleet before the timed run.
+        Returns the launch counts, the timed requests served a wall second
+        and the fleet's stats."""
+        res, shed = router.pop_results(uids), router.pop_shed(uids)
+        timed = uids[n_warm:]
+        served_timed = sum(u in res for u in timed)
+        expect(served_timed > 0, f"router {label}: nothing served")
+        st = router.stats()
+        expect(st["accounted"] and st["pending"] == 0, f"router {label}: ledger {st}")
+        expect(len(res) + len(shed) == len(uids) == st["submitted"],
+               f"router {label}: {len(res)} served + {len(shed)} shed of {len(uids)}")
+        expect("fleet_exhausted" not in st["shed_by_reason"],
+               f"router {label}: the fleet was exhausted")
+        # each served result against its replica backend's CPU counterpart
+        by_backend, max_err = {}, 0.0
+        for uid, r in res.items():
+            by_backend.setdefault(router.replicas[r.replica].backend.name, []).append(uid)
+        for name, served in by_backend.items():
+            served.sort()
+            with torch.inference_mode():
+                want = smallnet.apply(cpu_params, torch.from_numpy(payload[served]),
+                                      backend=plain_of[name]).numpy()
+            got = np.stack([res[u].scores for u in served])
+            tol = 0.0 if name == "fixed_cuda" else FLOAT_TOL
+            max_err = max(max_err, compare_scores(got, want, tol, f"router {label} {name}"))
+            preds = np.asarray([res[u].pred for u in served])
+            want_preds = smallnet.predict(torch.from_numpy(want)).numpy()
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            near = (top2[:, 1] - top2[:, 0]) <= tol
+            differ = preds != want_preds
+            expect(not differ.any() or (tol > 0 and near[differ].all()),
+                   f"router {label} {name}: {int(differ.sum())} Max Finder outputs differ")
+        # one launch of the replica's kernel a step (+ the warm-up of a spawned one)
+        want_counts = {}
+        for eng, est in zip(router.replicas, st["per_replica"]):
+            k = kernel_of[eng.backend.name]
+            want_counts[k] = want_counts.get(k, 0) + est["batches"]
+        want_counts["fixed_smallnet"] = want_counts.get("fixed_smallnet", 0) + spawned
+        want_counts = {k: v for k, v in want_counts.items() if v}
+        expect(counts == want_counts, f"router {label}: launches {counts}, expected {want_counts}")
+        emit("router", run=label, process=gen.process if gen else "closed loop",
+             rate_qps=gen.rate_qps if gen else None,
+             offered_qps=gen.offered_qps if gen else None,
+             warm_requests=n_warm, requests=len(timed),
+             served=served_timed, shed=len(timed) - served_timed,
+             shed_by_reason=st["shed_by_reason"], wall_s=wall_s,
+             served_per_wall_s=served_timed / wall_s,
+             latency_p50_ms=st.get("latency_p50_ms"), latency_p99_ms=st.get("latency_p99_ms"),
+             goodput=st.get("goodput"), served_by=st["served_by"], failed=st["failed"],
+             retired=st["retired"], replicas=[e.backend.name for e in router.replicas],
+             # engine steps and their real share of slots, warm-up included:
+             # small batches mean the fleet's fixed costs a step dominate
+             steps=sum(e["batches"] for e in st["per_replica"]),
+             batch_occupancy=[e["batch_occupancy"] for e in st["per_replica"]],
+             launches=counts, max_abs_err=max_err, card=card)
+        return counts, served_timed / wall_s, st
+
+    def replay(label, router, gen, warm=True):
+        """Replay `gen` open loop into the started router, after
+        `warm_up` where `warm`."""
+        images = gen.images()
+        expect(len(images) > 0, f"router {label}: empty schedule")
+        reset_launches()
+        uids = warm_up(router, images) if warm else []
+        n_warm = len(uids)
+        router.start()
+        try:
+            t0 = time.perf_counter()
+            gen.replay(lambda a, t: uids.append(router.submit(images[a.uid], t_submit=t)))
+            router.wait(uids, timeout=300)
+            wall_s = time.perf_counter() - t0
+        finally:
+            router.stop()
+        # a fresh router numbers its requests from 0 in submission order
+        counts, _, st = check(label, router, gen,
+                              np.concatenate([images[:n_warm], images]), uids, wall_s,
+                              launches(), n_warm=n_warm)
+        return counts, st
+
+    fleet = ["fixed_cuda", "fixed_cuda", "cuda_plan"]
+    # the fleet's capacity: 4096 requests at once, drained closed loop (a
+    # 60 s deadline, so none lapses while the burst is being queued)
+    router = ReplicaRouter.from_backends(params, fleet, batch_size=ENGINE_BATCH,
+                                         policy="slo", slo_ms=50)
+    images, _ = synth_mnist.make_dataset(4096, seed=10)
+    reset_launches()
+    uids = warm_up(router, images)
+    n_warm = len(uids)
+    t0 = time.perf_counter()
+    uids += router.submit_many(list(images), deadline_ms=60_000.0)
+    router.wait(uids)
+    wall_s = time.perf_counter() - t0
+    counts, capacity_qps, _ = check("closed-loop capacity", router, None,
+                                    np.concatenate([images[:n_warm], images]), uids, wall_s,
+                                    launches(), n_warm=n_warm)
+    runs = [counts]
+    emit("router", run="rates", q16_engine_wall_qps=q16_wall_qps,
+         fleet_capacity_qps=capacity_qps, capacity_floor=CAPACITY_FLOOR,
+         min_goodput=MIN_GOODPUT, max_p50_ms=MAX_P50_MS, card=card)
+    expect(capacity_qps >= CAPACITY_FLOOR * q16_wall_qps,
+           f"router: the fleet drains {capacity_qps:.0f} requests/s closed loop, under "
+           f"{CAPACITY_FLOOR} of one Q16.16 engine's {q16_wall_qps:.0f}")
+    # open loop at fractions of the fleet's own capacity, the eighth held to
+    # MIN_GOODPUT and MAX_P50_MS; then at half the Q16.16 engine's rate and
+    # bursty at twice that
+    for label, process, rate, n, held in (
+            ("poisson at 1/8 of the fleet's capacity", "poisson", capacity_qps / 8, 2048, True),
+            ("poisson at 1/4 of the fleet's capacity", "poisson", capacity_qps / 4, 2048, False),
+            ("poisson at half the fleet's capacity", "poisson", capacity_qps / 2, 4096, False),
+            ("poisson at half the Q16.16 engine's rate", "poisson", q16_wall_qps / 2, 4096,
+             False),
+            ("bursty at the Q16.16 engine's rate", "bursty", q16_wall_qps, 4096, False)):
+        router = ReplicaRouter.from_backends(params, fleet, batch_size=ENGINE_BATCH,
+                                             policy="slo", slo_ms=50)
+        gen = LoadGen(process=process, rate_qps=rate, n_requests=n,
+                      n_streams=8, seed=11, **BURSTS)
+        counts, st = replay(label, router, gen)
+        runs.append(counts)
+        if held:
+            expect(st["goodput"] >= MIN_GOODPUT and st["latency_p50_ms"] <= MAX_P50_MS,
+                   f"router {label}: goodput {st['goodput']:.3f} (at least {MIN_GOODPUT}), "
+                   f"p50 {st['latency_p50_ms']:.2f} ms (at most {MAX_P50_MS})")
+
+    # failover: the faulty replica comes first, so a cold fleet's first
+    # request (every projected wait 0, ties to the lowest index) lands on it
+    faulty = VisionEngine(params, backend=FaultyOnce(), batch_size=ENGINE_BATCH,
+                          device="cuda", warmup=False)
+    router = ReplicaRouter([faulty] + [VisionEngine(params, backend=b, batch_size=ENGINE_BATCH,
+                                                    device="cuda") for b in fleet],
+                           policy="slo", slo_ms=50)
+    gen = LoadGen(process="poisson", rate_qps=0.5 * capacity_qps, n_requests=1024,
+                  n_streams=8, seed=12)
+    runs.append(replay("failover", router, gen, warm=False)[0])
+    st = router.stats()
+    expect(fired and st["failed"] == [0] and st["healthy"] == len(fleet),
+           f"router failover: the fault did not fire or was not failed over ({st['failed']})")
+
+    # autoscale: one replica, a spawn factory, the bursty schedule in 10 ms
+    # waves with autoscale() between them, then idle checks until it retires
+    spawned = []
+
+    def spawn():
+        eng = VisionEngine(params, backend="fixed_cuda", batch_size=ENGINE_BATCH, device="cuda")
+        spawned.append(eng)
+        return eng
+
+    # least_loaded, as the reference's autoscale test: no door sheds, so the
+    # backlog an autoscale() call sees is the burst itself
+    router = ReplicaRouter.from_backends(params, ["fixed_cuda"], batch_size=ENGINE_BATCH,
+                                         policy="least_loaded", slo_ms=50, spawn=spawn,
+                                         min_replicas=1, max_replicas=3,
+                                         scale_up_depth=2.0, scale_down_idle=3)
+    gen = LoadGen(process="bursty", rate_qps=2.0 * capacity_qps, n_requests=4096,
+                  n_streams=8, seed=13, **BURSTS)
+    images = gen.images()
+    expect(len(images) > 0, "router autoscale: empty schedule")
+    reset_launches()
+    # one warm batch first, then the schedule in waves
+    uids = router.submit_many(list(images[:ENGINE_BATCH]))
+    router.run()
+    payload = np.concatenate([images[:ENGINE_BATCH], images])
+    decisions = []
+    t0 = time.perf_counter()
+    wave_s, sched, i = 0.010, gen.schedule(), 0
+    while i < len(sched):
+        end = sched[i].t + wave_s
+        while i < len(sched) and sched[i].t < end:
+            uids.append(router.submit(images[sched[i].uid]))
+            i += 1
+        decisions.append(router.autoscale())
+        router.run()
+    for _ in range(10):                                   # idle checks
+        decisions.append(router.autoscale())
+    wall_s = time.perf_counter() - t0
+    spawns = [d for d in decisions if d and d.startswith("spawn")]
+    retires = [d for d in decisions if d and d.startswith("retire")]
+    expect(spawns and retires and router.stats()["healthy"] == 1,
+           f"router autoscale: spawns {spawns}, retires {retires}, "
+           f"healthy {router.stats()['healthy']}")
+    runs.append(check("autoscale", router, gen, payload, uids, wall_s, launches(),
+                      spawned=len(spawned), n_warm=ENGINE_BATCH)[0])
+    emit("autoscale", decisions=[d for d in decisions if d], spawned=len(spawned), card=card)
+    return runs
 
 
 def ambiguity(sweep, scores, positions, tol: float) -> dict:
@@ -1811,12 +2218,14 @@ def run(card: str, kind: str, count: int) -> None:
     images, _ = synth_mnist.make_dataset(N_REQUESTS, seed=1)
     served = {"fixed_smallnet": 1}
     composed = {"fixed_conv2d": 2, "fixed_maxpool2x2": 2, "fixed_dense": 1, "fixed_sigmoid": 1}
+    q16_counts, q16_wall_qps = serve_once(params, images, "fixed_cuda", "serve q16_16", card,
+                                          served)
     runs = [
-        serve_once(params, images, "fixed_cuda", "serve q16_16", card, served),
+        q16_counts,
         serve_once(params, images, B.FixedCudaBackend(cfg=fxp.Q8_8),
-                   "serve q8_8", card, served),
+                   "serve q8_8", card, served)[0],
         serve_once(params, images[:256], ComposedStages(), "composed q16_16", card,
-                   composed),
+                   composed)[0],
     ]
     # the float and int8 backends, each held to its plain counterpart on the
     # CPU; the composed float engine keeps the per-stage float kernels on a
@@ -1831,7 +2240,12 @@ def run(card: str, kind: str, count: int) -> None:
             ("plan", "plan", 256, {})):
         label = "composed cuda_plan" if isinstance(backend, ComposedFloat) else f"serve {backend}"
         runs.append(serve_once(params, images[:n], backend, label, card, per_step, plain=plain,
-                               tol=FLOAT_TOL))
+                               tol=FLOAT_TOL)[0])
+    # training, the ladder and the router come before the sweep, so a time
+    # cut cannot drop them
+    trained_np, train_runs = phase_train(card)
+    runs += train_runs
+    runs += phase_router(card, trained_np, q16_wall_qps)
     runs += phase_sweep(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)

@@ -2,6 +2,7 @@
 
 The JAX package `repro` stays the reference; nothing here imports it or
 JAX.  Layout mirrors it: `core/` (fixed-point words, backends, the smallNet
-graph, the device rule), `kernels/` (CUDA kernels in `csrc/` with their
-plain PyTorch versions), `serving/`, `obs/`, `data/`.
+graph, training and deployment, the device rule), `kernels/` (CUDA kernels
+in `csrc/` with their plain PyTorch versions), `optim/`, `serving/` (the
+engine and the replica router), `streaming/`, `obs/`, `data/`.
 """

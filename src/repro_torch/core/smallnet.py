@@ -20,17 +20,48 @@ Qm.n int32 words on the fixed ones; `predict` takes both.
 Device rule (core/device.py): images that are a tensor stay on its device;
 anything else goes to `device`, which defaults to "cuda" and raises where
 there is none.  Params are moved next to the images.  There is no mesh, so
-the reference's `_constrain_batch` has no counterpart.  Training
-(`init_params`, `loss_fn`, `forward_logits`, `deploy`) is not ported yet.
+the reference's `_constrain_batch` has no counterpart.
+
+Training (`init_params`, `forward_logits`, `loss_fn`; the loop is
+`core/deploy.py`) runs on the `ref` backend's plain PyTorch ops under
+autograd, as the reference's runs `jax.value_and_grad` over plain XLA ops:
+no kernel of either package has a backward pass.  `init_params` draws from
+a `torch.Generator`, since torch cannot reproduce `jax.random`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import backends as B
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core import ptq
-from repro_torch.core.device import as_device_tensor
+from repro_torch.core.device import as_device_tensor, resolve_device
+
+
+def _glorot_uniform(shape: tuple, generator: torch.Generator | None) -> torch.Tensor:
+    """`jax.nn.initializers.glorot_uniform` for an HWIO conv or (in, out)
+    dense weight: U(-l, l), l = sqrt(6 / (fan_in + fan_out)), each fan the
+    receptive field times the in or out channels."""
+    receptive = math.prod(shape[:-2])
+    limit = math.sqrt(6.0 / (receptive * (shape[-2] + shape[-1])))
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return (2.0 * u - 1.0) * limit
+
+
+def init_params(generator: torch.Generator | None = None, *,
+                device: torch.device | str | None = None) -> dict:
+    """Fresh float params: glorot-uniform weights (conv fans 4 and 4, dense
+    49 and 10), zero biases; 510 in all.  Drawn on the CPU from `generator`
+    (torch's default generator when None), then moved to `device`, so a
+    seeded generator gives the same params on every device."""
+    dev = resolve_device(device)
+    shapes = {"conv1": (2, 2, 1, 1), "conv2": (2, 2, 1, 1), "dense": (49, 10)}
+    return {layer: {"w": _glorot_uniform(shape, generator).to(dev),
+                    "b": torch.zeros(shape[-1], dtype=torch.float32, device=dev)}
+            for layer, shape in shapes.items()}
 
 
 def param_count(params: dict) -> int:
@@ -163,6 +194,31 @@ def predict(scores) -> torch.Tensor:
     top = scores.max(dim=-1, keepdim=True).values
     idx = torch.arange(n, device=scores.device).expand_as(scores)
     return torch.where(scores == top, idx, n).min(dim=-1).values
+
+
+def forward_logits(params: dict, images, *,
+                   device: torch.device | str | None = None) -> torch.Tensor:
+    """Pre-sigmoid class scores (B,10) on the float `ref` path: the deployed
+    net up to and including the dense layer.  Sigmoid is monotone, so
+    argmax over these equals the Max Finder over the deployed scores.
+    Differentiable in `params` (plain PyTorch ops throughout)."""
+    be = B.get_backend("ref")
+    x = _images(images, device)
+    p = be.prepare_params(params, x.device)
+    return _dense_preact(be, p, _conv_stages(be, p, x))
+
+
+def loss_fn(params: dict, images, labels) -> torch.Tensor:
+    """Categorical crossentropy (paper §III-A) on the PRE-sigmoid logits,
+    as the reference's training objective: CCE through the output sigmoid
+    has vanishing gradients at this width, and log_softmax is
+    shift-invariant while sigmoid is monotone, so the deployed net (sigmoid
+    + Max Finder) is unchanged; only the training signal differs."""
+    logits = forward_logits(params, images)
+    labels = as_device_tensor(labels, logits.device).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = F.one_hot(labels, logits.shape[-1]).to(logp.dtype)
+    return -torch.mean(torch.sum(onehot * logp, dim=-1))
 
 
 def accuracy(apply_fn, params, images, labels, batch: int = 256) -> float:

@@ -6,25 +6,36 @@ sends CPU tensors to its plain PyTorch version and launches its CUDA kernel
 for CUDA tensors; any other device raises.  There is no fallback: a CUDA
 tensor either goes through the kernel or the call raises.
 
-`LAUNCHES[name]` is incremented by a wrapper where it launches its kernel
+`count_launch(name)` is called by a wrapper where it launches its kernel
 and nowhere else, so a run can show which kernels its path went through
-(`reset_launches()` before, `launches()` after).
+(`reset_launches()` before, `launches()` after).  The count is taken under
+a lock: engines started with `VisionEngine.start` step on threads of their
+own.
 """
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
 LAUNCHES: collections.Counter[str] = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def launches() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        LAUNCHES.clear()
 
 
 def require_words(what: str, t: torch.Tensor, *, ndim: int | None = None,

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.fixed_point import sigmoid_plan_f32
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_tensor, stream_of
+from repro_torch.kernels._launch import count_launch, on_cuda, require_tensor, stream_of
 from repro_torch.kernels.maxpool2d.ops import maxpool2d_plain
 
 _ACTIVATIONS = (None, "sigmoid", "plan")
@@ -132,7 +132,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
                            out.data_ptr(), B, H, W, cin, kh, kw, cout, Ho, Wo,
                            stride, _ACT_CODE[activation], stream)
     _build.check(lib, rc, "conv2d")
-    LAUNCHES["conv2d"] += 1
+    count_launch("conv2d")
     return out
 
 
@@ -218,5 +218,5 @@ def float_smallnet(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
                                    db.data_ptr(), out.data_ptr(), B, H, W, N,
                                    _ACT_CODE[activation], stream)
     _build.check(lib, rc, f"float_smallnet {H}x{W} images, {N} classes")
-    LAUNCHES["float_smallnet"] += 1
+    count_launch("float_smallnet")
     return out

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_words, stream_of
+from repro_torch.kernels._launch import count_launch, on_cuda, require_words, stream_of
 from repro_torch.kernels.quant_matmul.ops import fixed_dense_plain
 
 _ACTIVATIONS = (None, "plan")
@@ -117,7 +117,7 @@ def fixed_conv2d(x: torch.Tensor, w4: torch.Tensor, b: torch.Tensor, *,
                                  int(activation == "plan"), int(pool),
                                  _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, "fixed_conv2d")
-    LAUNCHES["fixed_conv2d"] += 1
+    count_launch("fixed_conv2d")
     return out
 
 
@@ -135,7 +135,7 @@ def fixed_maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     rc = lib.fixed_maxpool2x2_launch(dev, x.data_ptr(), out.data_ptr(), B, H, W,
                                      H // 2, W // 2, stream)
     _build.check(lib, rc, "fixed_maxpool2x2")
-    LAUNCHES["fixed_maxpool2x2"] += 1
+    count_launch("fixed_maxpool2x2")
     return out
 
 
@@ -153,7 +153,7 @@ def fixed_sigmoid(x: torch.Tensor, *,
     rc = lib.fixed_sigmoid_launch(dev, x.data_ptr(), out.data_ptr(), x.numel(),
                                   _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, "fixed_sigmoid")
-    LAUNCHES["fixed_sigmoid"] += 1
+    count_launch("fixed_sigmoid")
     return out
 
 
@@ -219,5 +219,5 @@ def fixed_smallnet(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
                                    db.data_ptr(), out.data_ptr(), B, H, W, N,
                                    _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, f"fixed_smallnet {H}x{W} images, {N} classes")
-    LAUNCHES["fixed_smallnet"] += 1
+    count_launch("fixed_smallnet")
     return out

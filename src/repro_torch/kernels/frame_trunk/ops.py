@@ -57,7 +57,7 @@ import torch
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_words, stream_of
+from repro_torch.kernels._launch import count_launch, on_cuda, require_words, stream_of
 from repro_torch.kernels.fixed_conv.ops import fixed_conv2d_plain
 
 HALO = 3                       # input rows/cols of bottom/right apron per tile
@@ -251,5 +251,5 @@ def frame_trunk_quad(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
                                 H, W, th, tw, _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, "frame_trunk_quad")
-    LAUNCHES["frame_trunk"] += 1
+    count_launch("frame_trunk")
     return out

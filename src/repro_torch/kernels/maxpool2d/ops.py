@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_tensor, stream_of
+from repro_torch.kernels._launch import count_launch, on_cuda, require_tensor, stream_of
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -40,5 +40,5 @@ def maxpool2d(x: torch.Tensor) -> torch.Tensor:
     rc = lib.maxpool2d_launch(dev, x.data_ptr(), out.data_ptr(), B, H, W, C,
                               int(x.dtype == torch.bfloat16), stream)
     _build.check(lib, rc, "maxpool2d")
-    LAUNCHES["maxpool2d"] += 1
+    count_launch("maxpool2d")
     return out

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core import fixed_point as fxp
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (LAUNCHES, on_cuda, require_tensor,
+from repro_torch.kernels._launch import (count_launch, on_cuda, require_tensor,
                                          require_words, stream_of)
 
 
@@ -78,7 +78,7 @@ def fixed_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     rc = lib.fixed_dense_launch(dev, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                                 out.data_ptr(), M, K, N, _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, "fixed_dense")
-    LAUNCHES["fixed_dense"] += 1
+    count_launch("fixed_dense")
     return out
 
 
@@ -164,7 +164,7 @@ def fixed_window_head(quad, gy: torch.Tensor, gx: torch.Tensor, w: torch.Tensor,
                                       out.data_ptr(), Nw, mh, mw, k, N,
                                       _build.fixed_cfg(cfg), stream)
     _build.check(lib, rc, f"fixed_window_head w {tuple(w.shape)}")
-    LAUNCHES["fixed_window_head"] += 1
+    count_launch("fixed_window_head")
     return out
 
 
@@ -245,5 +245,5 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, sx=1.0, sw=1.0) -> torch.Te
                                           sx.data_ptr(), sw.data_ptr(),
                                           out.data_ptr(), M, K, N, stream)
     _build.check(lib, rc, "quant_matmul")
-    LAUNCHES["quant_matmul"] += 1
+    count_launch("quant_matmul")
     return out

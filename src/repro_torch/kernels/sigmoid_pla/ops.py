@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.fixed_point import sigmoid_plan_f32
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import LAUNCHES, on_cuda, require_tensor, stream_of
+from repro_torch.kernels._launch import count_launch, on_cuda, require_tensor, stream_of
 
 sigmoid_pla_plain = sigmoid_plan_f32
 
@@ -32,5 +32,5 @@ def sigmoid_pla(x: torch.Tensor) -> torch.Tensor:
     dev, stream = stream_of(x)
     rc = lib.sigmoid_pla_launch(dev, x.data_ptr(), out.data_ptr(), x.numel(), stream)
     _build.check(lib, rc, "sigmoid_pla")
-    LAUNCHES["sigmoid_pla"] += 1
+    count_launch("sigmoid_pla")
     return out

@@ -121,6 +121,13 @@ class Tracer:
         self._record(s)
         return s
 
+    def point(self, name: str, trace_id: str, status: str = "ok", *,
+              parent: Span | None = None, **tags) -> Span:
+        """A zero-duration event span (a dispatch decision, an
+        at-the-door shed): started and ended at the same instant."""
+        return self.end(self.start(name, trace_id, parent=parent, **tags),
+                        status)
+
 # -- the process-wide switch --------------------------------------------------
 
 _TRACER: Tracer | None = None

@@ -38,7 +38,10 @@ Throughput is reported over BUSY time (the sum of per-step serving windows),
 not the submit-to-done wall clock, so an engine reused across separated
 bursts reports its real service rate instead of one deflated by idle gaps —
 `stats()` also reports the wall window (first submit to last completion),
-which includes the host work after each step.
+which includes the host work after each step.  `load()`,
+`service_rate_qps()` and `seed_rate_qps()` (the capacity the `min_step_s`
+floor sets) are the dispatch signals of `serving/router.py`, which scales
+across separate engines.
 
 Usage:
 
@@ -138,13 +141,20 @@ class VisionEngine:
                  warmup: bool = True,
                  device: torch.device | str | None = None,
                  max_queue: int | None = None,
-                 max_age_ms: float | None = None):
+                 max_age_ms: float | None = None,
+                 min_step_s: float = 0.0):
         self.backend = B.get_backend(backend)
         self.image_shape = tuple(image_shape)
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.max_queue = None if max_queue is None else int(max_queue)
         self.max_age_ms = None if max_age_ms is None else float(max_age_ms)
+        # service-time floor per step: a deterministic rate limiter
+        # (capacity = batch_size / min_step_s), so a test of the router's
+        # dispatch has a known capacity whatever the host's speed.  Only
+        # the tests that mirror the reference's dispatch tests set it; no
+        # path of the port does.  0 disables
+        self.min_step_s = float(min_step_s)
         # quantize once at engine build (the paper bakes weights at synthesis)
         self.params = self.backend.prepare_params(params, self.device)
         self._cond = threading.Condition()
@@ -326,7 +336,8 @@ class VisionEngine:
         except Exception:
             # a faulted step sheds its batch (reason "fault") rather than
             # losing it: submitted == served + shed + pending must survive
-            # a device fault
+            # replica death (the router treats "fault" sheds as unserved
+            # and fails them over)
             if ds is not None:
                 tr.end(ds, "error")
             with self._cond:
@@ -337,6 +348,9 @@ class VisionEngine:
                                       parent_span=r.parent_span, queued=True)
             raise
         t_done = time.perf_counter()
+        if self.min_step_s > 0.0 and t_done - t0 < self.min_step_s:
+            time.sleep(self.min_step_s - (t_done - t0))
+            t_done = time.perf_counter()     # the floor IS the service time
         if ds is not None:
             tr.end(ds)
         scores_cpu = scores.cpu()                   # one copy back per step
@@ -458,6 +472,11 @@ class VisionEngine:
     def queue_depth(self) -> int:
         return len(self._queue)
 
+    def load(self) -> int:
+        """Queued + in-flight requests: the router's depth signal."""
+        with self._cond:
+            return len(self._queue) + self._in_flight
+
     # -- client loop --------------------------------------------------------
 
     def wait(self, uids: Iterable[int], timeout: float | None = None) -> None:
@@ -545,11 +564,23 @@ class VisionEngine:
 
     def service_rate_qps(self) -> float | None:
         """Observed service rate: requests served per second of BUSY time
-        (idle gaps excluded).  None before any serving history exists."""
+        (idle gaps excluded).  None before any serving history exists —
+        the router's dispatch falls back to fleet statistics then."""
         with self._cond:
             if self._m_busy.value <= 0 or self._m_served.value == 0:
                 return None
             return self._m_served.value / self._m_busy.value
+
+    def seed_rate_qps(self) -> float | None:
+        """Deterministic service-rate bound available BEFORE any serving
+        history: the `min_step_s` floor admits at most one batch per floor
+        period, so capacity is batch_size / min_step_s.  None when no floor
+        is configured.  This is the router's cold-start dispatch signal —
+        without it a cold fleet projects 0.0 wait for any backlog and the
+        slo door never sheds (the cold-fleet SLO hole)."""
+        if self.min_step_s > 0.0:
+            return self.batch_size / self.min_step_s
+        return None
 
     def stats(self) -> dict:
         """Per-request latency distribution + engine throughput + the

@@ -21,7 +21,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
-       "repro_torch.kernels.maxpool2d.ops", "repro_torch.kernels.sigmoid_pla.ops"]
+       "repro_torch.kernels.maxpool2d.ops", "repro_torch.kernels.sigmoid_pla.ops",
+       "repro_torch.core.deploy", "repro_torch.optim.adam",
+       "repro_torch.streaming.loadgen", "repro_torch.serving.router"]
 assert all(m in names for m in new), sorted(set(new) - set(names))
 print(len(names), bad)
 """

@@ -63,6 +63,22 @@ def test_quantize_matches_jax_words_and_scales(shape, per_channel):
     _eq_quant(got, jptq.quantize(jnp.asarray(x), jptq.QuantConfig(**cfg)))
 
 
+@pytest.mark.parametrize("value", [0.0, 1e-30])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_quantize_of_zero_and_tiny_tensors_takes_the_floor_scale(value, per_channel):
+    """An all-zero or 1e-30 tensor: the absmax is floored at 1e-8, so the
+    scale is 1e-8 / 127 (7.874e-11) and every word 0, as in the reference."""
+    x = np.full((6, 4), value, np.float32)
+    cfg = dict(per_channel=per_channel)
+    got = ptq.quantize(torch.from_numpy(x), ptq.QuantConfig(**cfg))
+    _eq_quant(got, jptq.quantize(jnp.asarray(x), jptq.QuantConfig(**cfg)))
+    np.testing.assert_array_equal(got.q.numpy(), np.zeros((6, 4), np.int8))
+    np.testing.assert_allclose(got.scale.numpy(), np.float32(1e-8) / np.float32(127),
+                               rtol=0)
+    assert float(got.scale.reshape(-1)[0]) == pytest.approx(7.874e-11, rel=1e-4)
+    assert tuple(got.scale.shape) == ((1, 4) if per_channel else (1, 1))
+
+
 def test_quantize_rounds_half_to_even_and_clips():
     # x / scale lands on .5 exactly: both frameworks round half to even
     x = np.float32([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5])
