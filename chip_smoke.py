@@ -6,8 +6,10 @@
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
-  device    the card's name and power limit (nvidia-smi) and
-            torch.cuda.get_device_name
+  device    the card's name and power limit (nvidia-smi),
+            torch.cuda.get_device_name, and the entry `analysis/mfu.resolve()`
+            takes for it, whose peaks (DEVICE_DB["h100"]) every bound below
+            divides by
   build     compile the kernels of src/repro_torch/csrc with nvcc (sm_90a),
             timed, with ptxas' register counts
   ptxas     for the redesigned sources (quant_matmul.cu, frame_trunk.cu,
@@ -121,7 +123,9 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             the first 4 frames' score words equal the CPU's (sweep and host
             tiler), the ledger holds, and each frame is 1 frame_trunk and 1
             fixed_window_head launch; frames/s over the client's wall
-            window and p50/p99 frame latency.  Then the composed route
+            window and p50/p99 frame latency; each clip's launches a frame
+            also read by the profiler (`analysis/launches.count_launches`)
+            on one bare call.  Then the composed route
             (megakernel=False: 20 conv, 2 pool, 12 sigmoid, 1 dense per
             frame) beside it, and a 4-frame 1080x1920 clip through the
             frame_trunk route, word-checked against the CPU.  Then the same
@@ -130,14 +134,29 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             cuda_plan, 1 quant_matmul on int8): window scores within 2e-5
             of the CPU sweep and tiler, detections equal (label and place;
             score within 2e-5), windows within 2e-5 of the threshold
-            counted
+            counted.  Then `analysis/mfu.roofline_terms` of the three trunk
+            routes at 112x112 and 1080x1920, beside the composed cascade's
+            and the frame_trunk launch's device times measured there
+  disagg    `serving/disagg.DisaggServer` on fixed_cuda (`phase_disagg`):
+            score words equal to FcnSweep.score on the card and to the CPU
+            in Q16.16 and Q8.8 on both routes, at 112x112 and one
+            1080x1920 frame (a miss, then hits); cuda_plan within 2e-5 and
+            int8 equal; a cuda_plan hit launches only the head's share;
+            RepeatedClipSource(16 frames, repeats=4) through
+            StreamingPipeline: hit rate 0.75, 16 frame_trunk and 64
+            fixed_window_head launches by LAUNCHES and by the profiler,
+            every ledger accounted; frames/s of the monolithic loop and the
+            disagg loops (repeated, distinct), best of 2, stage p50s,
+            frame_digest's time; a started fleet (2 trunks, 2 heads):
+            closed-loop capacity, then LoadGen Poisson at 1/8 and 1/2 of it
+            with a 50 ms deadline; failover with trunk 0 faulted mid-run
   host      16 synchronous served steps: wall time per step against the
             engine's busy window per step, and the host time outside it
   profile   a torch.profiler trace of 16 served steps, then one of 16 sweep
             frames at 112x112: device busy share and device time by kernel
   kernels   one line listing every ported kernel (launches counted on the
-            serve, composed, train, ladder, latency, router and sweep paths,
-            reset to 0 before each and read after)
+            serve, composed, train, ladder, latency, router, sweep and disagg
+            paths, reset to 0 before each and read after)
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.  Any
 mismatch or failure raises; without CUDA, or outside a checkout of the
@@ -159,12 +178,11 @@ SEEDED_PARAMS = ROOT / "tests" / "golden" / "seeded_params.json"
 SWEEP_GOLDEN = ROOT / "tests" / "golden" / "sweep_golden.json"
 TRUNK_GOLDEN = ROOT / "tests" / "golden" / "frame_trunk_golden.json"
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-# int32 on the CUDA cores, not in the guide's table: 132 SMs x 64 INT32
-# lanes x 1.98 GHz boost, the clocks behind the data sheet's 67 TFLOP/s fp32
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-F32_FLOPS_PER_S = 67e12     # fp32 on the CUDA cores (NVIDIA data sheet)
-INT8_OPS_PER_S = 1979e12    # int8 tensor cores, dense (NVIDIA data sheet)
+# the card's peaks, read from src/repro_torch/analysis/mfu.py's
+# DEVICE_DB["h100"] (`load_peaks`, once the checkout is on the path): HBM
+# bytes/s, int32 operations/s on the CUDA cores, fp32 FLOP/s, int8 tensor
+# core operations/s
+HBM_BYTES_PER_S = INT32_OPS_PER_S = F32_FLOPS_PER_S = INT8_OPS_PER_S = None
 FLOAT_TOL = 2e-5            # float scores and conv outputs, rtol = atol
 
 ENGINE_BATCH = 64
@@ -184,6 +202,19 @@ BURSTS = {"burst_on_s": 0.02, "burst_off_s": 0.06}
 CAPACITY_FLOOR = 0.3
 MIN_GOODPUT = 0.95
 MAX_P50_MS = 10.0
+# the disagg phase: frames word-checked a route and format; the repeated
+# clip's distinct frames and repeats (a 0.75 hit rate); the open-loop
+# query pool, its calibration passes, requests a Poisson run, the fleet's
+# intake bound and deadline; passes of the pool in the failover run
+DISAGG_WORD_FRAMES = 8
+DISAGG_DISTINCT = 16
+DISAGG_REPEATS = 4
+DISAGG_POOL = 32
+DISAGG_PASSES = 8
+DISAGG_OPEN_LOOP_REQUESTS = 512
+DISAGG_MAX_QUEUE = 128
+DISAGG_SLO_MS = 50.0
+DISAGG_FAILOVER_PASSES = 4
 SATURATING = ("q16_16", "q16_16_sat", "q8_8_sat")   # a case timed in these formats too
 
 KERNELS = {
@@ -303,10 +334,42 @@ def device_ms(fn, reps: int) -> float:
     return statistics.median(per_call)
 
 
+def load_peaks() -> str:
+    """Set the peak rates from the port's one definition of the card's
+    peaks; returns the entry's derivation."""
+    global HBM_BYTES_PER_S, INT32_OPS_PER_S, F32_FLOPS_PER_S, INT8_OPS_PER_S
+    from repro_torch.analysis.mfu import DEVICE_DB
+    h100 = DEVICE_DB["h100"]
+    HBM_BYTES_PER_S = h100.mem_bw
+    INT32_OPS_PER_S = h100.peak("int32")
+    F32_FLOPS_PER_S = h100.peak("f32")
+    INT8_OPS_PER_S = h100.peak("int8")
+    return h100.source
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn`: the durations of the device
+    activity (kernels, copies, fills) that torch.profiler saw over `reps`
+    calls, summed, over `reps`.  Gaps between launches are not counted, and
+    a call that waits on the host is timed right."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    expect(us > 0, "profiled_device_ms: the profiler saw no device activity")
+    return us / reps / 1e3
+
+
 def bound_ms(nbytes: float, ops: float,
-             ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+             ops_per_s: float | None = None) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    t_ops = ops / (ops_per_s or INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -859,33 +922,13 @@ def phase_window_head_kernel(card: str) -> dict:
     return table
 
 
-def frame_trunk_work(H, W):
-    """(bytes, integer operations) that the whole trunk of one (H, W) frame
-    needs at the least.  Bytes: each input word read once (the H*W frame
-    and the ten tap and bias words; the halo's zeros are made, not read),
-    each output word written once.  Operations: only the words that the
-    two pools read, counting one per product of a word and a tap (a
-    product that several masked convs share, once), one per add (a tap sum
-    that is a part of another at the same position, once), one per bias or
-    recombination fixed_add (the zero word's not at all), one per PLAN
-    word and one per max of two words.  Per level-2 position, i.e. per 4x4
-    block of frame pixels:
-      level 0: 64 products, 49 tap-sum adds, 25 words (a bias add and a
-               PLAN each), 23 maxes (I at all four level-1 positions, B on
-               the odd row, R on the odd column, C at odd/odd)     = 186
-      level 1: 36 products, 46 adds, 16 PLAN words, 12 maxes      = 110
-    So 18.5 operations per frame pixel against 5 bytes: bound by bytes."""
-    blocks = (H // 4) * (W // 4)
-    nbytes = 4 * H * W + 4 * 10 + 4 * 4 * blocks
-    return nbytes, (186 + 110) * blocks
-
-
 def phase_frame_trunk_kernel(card: str) -> dict:
     """frame_trunk against its untiled plain version on the card, word for
     word, in the three wraparound configs, at every listed frame and tile;
     a saturating config and a tile that does not divide the frame raise."""
     import numpy as np
     import torch
+    from repro_torch.analysis.mfu import frame_trunk_work
     from repro_torch.core import fixed_point as fxp
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.kernels.frame_trunk import ops as FT
@@ -1794,6 +1837,7 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
     import numpy as np
     import torch
     from repro_torch.core import backends as B
+    from repro_torch.analysis.launches import count_launches
     from repro_torch.core import fixed_point as fxp
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serving.vision_engine import VisionEngine
@@ -1875,6 +1919,12 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
         got = sweep.score(eng.params, fb, backend=eng.backend, device="cuda")
         call_s.append(time.perf_counter() - t0)
         compare_scores(got, cpu_scores[f.index], tol, f"{label}: frame {f.index} bare call")
+    # the same call's launches read by the profiler too, against the
+    # wrappers' counts (count_launches raises where they differ)
+    fb, _ = sweep.extract(frames[0])
+    seen = count_launches(sweep.score, eng.params, fb, backend=eng.backend, device="cuda")
+    expect(seen == {k: v for k, v in want_per_frame.items() if v},
+           f"{label}: the profiler saw {seen} a frame, expected {want_per_frame}")
     emit("sweep", path=label, backend=eng.backend.name, fmt=fmt_of(eng.backend),
          against_cpu=plain.name, frame_shape=list(source.frame_shape),
          frames=n, windows_per_frame=len(sweep.positions(source.frame_shape)),
@@ -1889,7 +1939,8 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
          latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
          stage_p50_ms={k: v["p50_ms"] for k, v in st["stage"].items()},
          # the same sweep call outside the pipeline, for its first frames
-         score_call_wall_ms=statistics.median(call_s) * 1e3, card=card)
+         score_call_wall_ms=statistics.median(call_s) * 1e3, profiler_launches_per_frame=seen,
+         card=card)
     return counts, n / wall_s
 
 
@@ -1981,7 +2032,506 @@ def phase_sweep(card: str) -> list[dict]:
         runs.append(counts)
     emit("sweep", path="112x112 frames/s over the wall, every backend this run swept",
          frames_per_wall_s=rates, card=card)
+    sweep_roofline(params, card)
     return runs
+
+
+def sweep_roofline(params, card) -> None:
+    """`analysis/mfu.roofline_terms` for the three trunk routes of
+    `trunk_workload` at 112x112 and 1080x1920 on `fixed_cuda` (Q16.16),
+    beside the device time measured here: the composed cascade
+    (`_sweep_stage` twice on the ingested words) and the one frame_trunk
+    launch, each the sum of the device activity (kernels and copies) the
+    profiler saw in a call (`profiled_device_ms`: the cascade copies its tap
+    masks to the card, which waits behind `device_ms`'s spin kernel); the
+    frame_trunk launch also by CUDA events (`device_ms`).  "trunk", the
+    fused ideal, has no kernel and no time.  Then the whole per-frame
+    program of each route (`route_workload`, trunk and head): the two sweep
+    routes as `make_trunk_fn` + `make_head_fn` on the card, profiled; the
+    tiler (every window through the 28x28 net) is not run here and has no
+    time."""
+    import torch
+    from repro_torch.analysis import mfu
+    from repro_torch.core import backends as B
+    from repro_torch.kernels.frame_trunk import ops as FT
+    from repro_torch.streaming import SyntheticVideoSource
+    from repro_torch.streaming import fcn_sweep as fs
+
+    spec, plain = mfu.resolve()
+    dtype, _ = mfu.backend_numerics("fixed_cuda")
+    be = B.get_backend("fixed_cuda")
+    p = be.prepare_params(params_on(params, "cuda"), "cuda")
+    c1, c2 = p["conv1"], p["conv2"]
+    rows, programs = [], []
+
+    def roofline_row(wl, ms, **row):
+        terms = mfu.roofline_terms(wl, device=spec, dtype=dtype)
+        row.update({k: terms[k] for k in ("flops", "bytes", "intensity", "bound")},
+                   floor_ms=mfu.modeled_seconds(wl, device=spec, dtype=dtype) * 1e3,
+                   measured_ms=ms)
+        if ms is not None:
+            secs, basis = mfu.mfu_clock(wl, ms / 1e3, device=spec, dtype=dtype, plain=plain)
+            row.update(basis=basis, mfu=mfu.mfu(wl, secs, device=spec, dtype=dtype),
+                       **mfu.achieved(wl, secs))
+        return row
+
+    for shape in ((112, 112), CAMERA):
+        px = SyntheticVideoSource(seed=7, frame_shape=shape, n_frames=1).frames()[0].pixels
+        positions = tuple(fs.FcnSweep(stride=8).positions(shape))
+        x = torch.from_numpy(px[None]).cuda()
+        for route, mk in (("sweep_megakernel", None), ("sweep_composed", False)):
+            trunk_fn, head_fn = fs.make_trunk_fn(be, mk), fs.make_head_fn(be, 28, positions, mk)
+            ms = profiled_device_ms(lambda: head_fn(p, trunk_fn(p, x)), 10)
+            programs.append(roofline_row(mfu.route_workload(route, *shape, len(positions)), ms,
+                                         frame=list(shape), route=route))
+        programs.append(roofline_row(mfu.route_workload("tiler", *shape, len(positions)), None,
+                                     frame=list(shape), route="tiler"))
+        with torch.inference_mode():
+            words = be.ingest(torch.from_numpy(px[None]).cuda())
+            composed = lambda: fs._sweep_stage(
+                be, fs._sweep_stage(be, (words,) * 4, c1["w"], c1["b"]), c2["w"], c2["b"])
+            trunk = lambda: FT.frame_trunk_quad(words[0], c1["w"], c1["b"], c2["w"], c2["b"],
+                                                cfg=be.cfg)
+            times = {"trunk": None, "sweep_composed": profiled_device_ms(composed, 10),
+                     "sweep_megakernel": profiled_device_ms(trunk, 10)}
+            events_ms = device_ms(trunk, 50)
+        for route, ms in times.items():
+            row = roofline_row(mfu.trunk_workload(*shape, route), ms,
+                               frame=list(shape), route=route)
+            if route == "sweep_megakernel":
+                row["cuda_events_ms"] = events_ms
+            rows.append(row)
+    emit("sweep", path="roofline of the trunk routes (analysis/mfu.py), fixed_cuda Q16.16",
+         device=spec.name, dtype=dtype, peak=spec.peak(dtype), mem_bw=spec.mem_bw, rows=rows,
+         card=card)
+    emit("sweep", path="roofline of each route's per-frame program (analysis/mfu.py "
+         "route_workload), fixed_cuda Q16.16", device=spec.name, rows=programs, card=card)
+
+
+def phase_disagg(card: str) -> list[dict]:
+    """The disaggregated trunk/head server (`serving/disagg.py`) on the card,
+    with the reference's `seeded_params()` fixture and 112x112
+    `SyntheticVideoSource(seed=7)` frames at stride 8.  Words: Q16.16 and
+    Q8.8 on `fixed_cuda`, the default route and `megakernel=False`, each
+    frame's `score_frame` equal to `FcnSweep.score` on the card and to the
+    plain `fixed` sweep on the CPU, `detect` to the sweep's; `cuda_plan`
+    within FLOAT_TOL of its CPU scores (detections may differ only where the
+    CPU's own are ambiguous), `int8` equal; one 1080x1920 frame a miss then
+    hits, in both formats.  A `cuda_plan` hit launches only the head's
+    share of the frame's launches.  Then `RepeatedClipSource(16 frames,
+    repeats=4)` through `StreamingPipeline` + the server: hit rate 0.75,
+    16 frame_trunk and 64 fixed_window_head launches by `LAUNCHES` and by
+    the profiler (`analysis/launches.count_launches`), every ledger
+    accounted, repeated frames' detections equal the CPU sweep's.  Rates,
+    printed, not held: the monolithic loop and the disagg loop on the
+    repeated clip and the disagg loop on the distinct clip, frames/s best
+    of 2; each stage's p50; `frame_digest` at 112x112 and 1080x1920; the
+    camera frame's miss, hit and monolithic call.  Open loop: a started
+    fleet of 2 trunks and 2 heads, its closed-loop rate over 8 passes of 32
+    frames, then `LoadGen` Poisson at 1/8 and 1/2 of it with a
+    DISAGG_SLO_MS deadline (ledger and served scores held).  Failover:
+    trunk 0 faulted mid-run by an injected fault; every query served or
+    shed with a reason, served scores exact, no other replica faulted.
+    Returns the launch counts of the runs on the server's main path."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.launches import count_launches
+    from repro_torch.core import backends as B
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serving.disagg import DisaggServer, frame_digest
+    from repro_torch.streaming import (FcnSweep, RepeatedClipSource, StreamingPipeline,
+                                       SyntheticVideoSource)
+    from repro_torch.streaming import fcn_sweep as fs
+    from repro_torch.streaming.loadgen import LoadGen
+
+    params = fixture_params()
+    dev_params, cpu_params = params_on(params, "cuda"), params_on(params, "cpu")
+    runs = []
+
+    def cpu_sweep(backend, px):
+        return FcnSweep(stride=SWEEP_STRIDE).score(cpu_params, px, backend=backend,
+                                                   device="cpu")
+
+    # -- words: fixed_cuda in two formats and two routes, then float and int8
+    clip = SyntheticVideoSource(seed=7, frame_shape=(112, 112),
+                                n_frames=DISAGG_WORD_FRAMES).frames()
+    n_words = 0
+    for fmt, cfg in (("q16_16", fxp.Q16_16), ("q8_8", fxp.Q8_8)):
+        be, plain = B.FixedCudaBackend(cfg=cfg), B.FixedBackend(cfg=cfg)
+        thr = calibrated_threshold(params, clip[0], cfg)
+        want = [cpu_sweep(plain, f.pixels[None]) for f in clip]
+        for mk in (None, False):
+            sweep = FcnSweep(stride=SWEEP_STRIDE, threshold=thr, cfg=cfg, megakernel=mk)
+            srv = DisaggServer(params, backend=be, stride=SWEEP_STRIDE, megakernel=mk,
+                               cache_capacity=len(clip))
+            for f, w in zip(clip, want):
+                px = f.pixels[None]
+                got = srv.score_frame(px)
+                mono = sweep.score(dev_params, px, backend=be, device="cuda")
+                label = f"disagg {fmt} megakernel={mk} frame {f.index}"
+                compare_scores(got, mono, 0.0, f"{label} vs the monolithic sweep")
+                compare_scores(got, w, 0.0, label)
+                expect(srv.detect(f, tiler=sweep) == sweep.aggregate(mono, list(srv.positions)),
+                       f"{label}: detect differs from the monolithic sweep's")
+                n_words += got.size
+            st = srv.stats()
+            expect(st["accounted"] and st["n"] == 2 * len(clip)
+                   and st["cache"]["misses"] == len(clip) and st["cache"]["hits"] == len(clip),
+                   f"disagg {fmt} megakernel={mk}: ledger or cache {st['cache']}")
+    float_runs = {}
+    for name, tol in (("cuda_plan", FLOAT_TOL), ("int8", 0.0)):
+        want = [cpu_sweep(name, f.pixels[None]) for f in clip]
+        sweep = FcnSweep(stride=SWEEP_STRIDE, threshold=calibrated_threshold(
+            params, clip[0], fxp.Q16_16, scores=want[0]))
+        srv = DisaggServer(params, backend=name, stride=SWEEP_STRIDE, cache_capacity=len(clip))
+        pos = list(srv.positions)
+        torch.cuda.synchronize()
+        reset_launches()
+        max_err, differing = 0.0, []
+        for f, w in zip(clip, want):
+            got = srv.score_frame(f.pixels[None])
+            max_err = max(max_err, compare_scores(got, w, tol, f"disagg {name} frame {f.index}"))
+            if not same_detections(sweep.aggregate(got, pos), sweep.aggregate(w, pos), tol):
+                expect(tol > 0 and any(ambiguity(sweep, w, pos, tol).values()),
+                       f"disagg {name} frame {f.index}: detections differ from the CPU's")
+                differing.append(f.index)
+        runs.append(launches())
+        float_runs[name] = {"max_abs_err": max_err, "tolerance": tol, "launches": launches(),
+                            "frames_differing_within_tolerance": differing}
+
+    # a cuda_plan hit runs only the head: its launches are the head's share of
+    # a miss, read from the two halves the server runs
+    srv = DisaggServer(params, backend="cuda_plan", stride=SWEEP_STRIDE, cache_capacity=2)
+    trunk_fn = fs.make_trunk_fn(srv.backend, srv.megakernel)
+    head_fn = fs.make_head_fn(srv.backend, srv.patch, srv.positions, srv.megakernel)
+    px = clip[0].pixels[None]
+    shares = []
+    for step in ("trunk", "head", "miss", "hit"):
+        torch.cuda.synchronize()
+        reset_launches()
+        if step == "trunk":
+            quad = trunk_fn(srv.params, torch.from_numpy(px).cuda())
+        elif step == "head":
+            head_fn(srv.params, quad)
+        else:
+            srv.score_frame(px)
+        torch.cuda.synchronize()
+        shares.append(launches())
+    trunk_share, head_share, miss, hit = shares
+    # the head composes (no window_head on cuda_plan): gather, dense product,
+    # then the output PLAN, the only port kernel of the head
+    expect(sum(miss.values()) == 34 and head_share == {"sigmoid_pla": 1}
+           and {k: trunk_share.get(k, 0) + head_share.get(k, 0) for k in miss} == miss
+           and hit == head_share,
+           f"disagg cuda_plan launches: trunk {trunk_share}, head {head_share}, "
+           f"miss {miss}, hit {hit}")
+    emit("disagg", path="words", frames=len(clip), score_words_checked=n_words,
+         fixed_cuda="Q16.16 and Q8.8, megakernel None and False: equal to FcnSweep.score "
+                    "on the card and to the plain fixed sweep on the CPU",
+         float_and_int8=float_runs,
+         cuda_plan_launches={"trunk": trunk_share, "head": head_share, "miss": miss,
+                             "hit": hit}, card=card)
+
+    # -- one camera frame, a miss then hits, in both formats ------------------
+    px = SyntheticVideoSource(seed=7, frame_shape=CAMERA, n_frames=1).frames()[0].pixels[None]
+    camera = {}
+    for fmt, cfg in (("q16_16", fxp.Q16_16), ("q8_8", fxp.Q8_8)):
+        be = B.FixedCudaBackend(cfg=cfg)
+        sweep = FcnSweep(stride=SWEEP_STRIDE, cfg=cfg)
+        want = sweep.score(cpu_params, px, backend=B.FixedBackend(cfg=cfg), device="cpu")
+        srv = DisaggServer(params, backend=be, frame_shape=CAMERA, stride=SWEEP_STRIDE,
+                           cache_capacity=2)
+        native = be.prepare_params(dev_params, "cuda")
+        mono_s, hit_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mono = sweep.score(native, px, backend=be, device="cuda")
+            mono_s.append(time.perf_counter() - t0)
+        compare_scores(mono, want, 0.0, f"disagg camera {fmt}: the monolithic sweep")
+        t0 = time.perf_counter()
+        got = srv.score_frame(px)
+        miss_s = time.perf_counter() - t0
+        compare_scores(got, mono, 0.0, f"disagg camera {fmt}: a miss")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = srv.score_frame(px)
+            hit_s.append(time.perf_counter() - t0)
+            compare_scores(got, mono, 0.0, f"disagg camera {fmt}: a hit")
+        st = srv.stats()
+        expect(st["cache"]["hits"] == 3 and st["cache"]["misses"] == 1,
+               f"disagg camera {fmt}: cache {st['cache']}")
+        camera[fmt] = {"miss_ms": miss_s * 1e3, "hit_ms": statistics.median(hit_s) * 1e3,
+                       "monolithic_ms": statistics.median(mono_s) * 1e3}
+    digest_ms = {}
+    for shape, reps in (((1, 112, 112, 1), 200), ((1,) + CAMERA + (1,), 10)):
+        x = np.random.default_rng(0).random(shape, dtype=np.float32)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            frame_digest(x)
+        digest_ms["x".join(map(str, shape[1:3]))] = (time.perf_counter() - t0) / reps * 1e3
+    emit("disagg", path="camera frame 1080x1920, fixed_cuda", windows=len(srv.positions),
+         wall_ms=camera, hit_over_monolithic={k: v["hit_ms"] / v["monolithic_ms"]
+                                              for k, v in camera.items()},
+         frame_digest_ms=digest_ms, card=card)
+
+    # -- the repeated clip through the pipeline: hits and launches -----------
+    base = SyntheticVideoSource(seed=7, frame_shape=(112, 112), n_frames=DISAGG_DISTINCT)
+    source = RepeatedClipSource(base, repeats=DISAGG_REPEATS)
+    frames = source.frames()
+    sweep = FcnSweep(stride=SWEEP_STRIDE,
+                     threshold=calibrated_threshold(params, frames[0], fxp.Q16_16))
+    want = {}
+    for f in base.frames():
+        fb, pos = sweep.extract(f)
+        want[frame_digest(f.pixels)] = sweep.aggregate(cpu_sweep("fixed", fb), pos, fb)
+    srv = DisaggServer(params, backend="fixed_cuda", stride=SWEEP_STRIDE,
+                       cache_capacity=2 * DISAGG_DISTINCT)
+    pipe = StreamingPipeline(source, srv, sweep)
+    torch.cuda.synchronize()
+    reset_launches()
+    seen = count_launches(pipe.run)
+    counts = launches()
+    n = len(frames)
+    want_counts = {"frame_trunk": DISAGG_DISTINCT, "fixed_window_head": n}
+    expect(counts == want_counts and seen == want_counts,
+           f"disagg pipeline: launches {counts}, profiler {seen}, expected {want_counts}")
+    runs.append(counts)
+    ps, ss = pipe.stats(), srv.stats()
+    expect(ps["accounted"] and ps["frames_served"] == n and ps["frames_dropped"] == 0,
+           f"disagg pipeline: ledger {ps['frames_in']} in, {ps['frames_served']} served")
+    expect(ss["accounted"] and ss["n"] == n and ss["shed"] == 0
+           and all(st["accounted"] for st in ss["per_stage"].values()),
+           f"disagg pipeline: server ledger {ss['submitted']} {ss['n']} {ss['shed']}")
+    cache = ss["cache"]
+    expect(cache["hits"] == n - DISAGG_DISTINCT and cache["misses"] == DISAGG_DISTINCT
+           and cache["hit_rate"] == 1 - 1 / DISAGG_REPEATS, f"disagg pipeline: cache {cache}")
+    for f, r in zip(frames, pipe.results):
+        expect(r.index == f.index and r.detections == want[frame_digest(f.pixels)],
+               f"disagg pipeline: frame {f.index} detections differ from the CPU sweep's")
+    emit("disagg", path="RepeatedClipSource(16 frames, repeats=4) through StreamingPipeline, "
+         "fixed_cuda, under the profiler", frames=n, launches=counts, profiler_launches=seen,
+         hit_rate=cache["hit_rate"], cache=cache, detections=ps["detections_total"], card=card)
+    disagg_export(source, sweep, params, want, card)
+
+    # -- rates: the stream table's three lanes, best of 2 --------------------
+    rep_px = [f.pixels[None] for f in frames]
+    base_px = [f.pixels[None] for f in base.frames()]
+
+    # the monolithic lane holds its params quantized on the card, as a
+    # VisionEngine does (the server quantizes its own once, at construction)
+    native = B.get_backend("fixed_cuda").prepare_params(dev_params, "cuda")
+
+    def mono_run():
+        t0 = time.perf_counter()
+        for x in rep_px:
+            sweep.score(native, x, backend="fixed_cuda", device="cuda")
+        return len(rep_px) / (time.perf_counter() - t0), None
+
+    def disagg_run(clip_px):
+        srv = DisaggServer(params, backend="fixed_cuda", stride=SWEEP_STRIDE,
+                           cache_capacity=2 * DISAGG_DISTINCT)   # a fresh cache a rep
+        t0 = time.perf_counter()
+        for x in clip_px:
+            srv.score_frame(x)
+        return len(clip_px) / (time.perf_counter() - t0), srv.stats()
+
+    best = lambda run: max((run() for _ in range(2)), key=lambda r: r[0])
+    lanes = {"monolithic_repeated": best(mono_run),
+             "disagg_repeated": best(lambda: disagg_run(rep_px)),
+             "disagg_distinct": best(lambda: disagg_run(base_px))}
+    fps = {k: v[0] for k, v in lanes.items()}
+    emit("disagg", path="frames/s over the wall, best of 2, 112x112 fixed_cuda", **fps,
+         disagg_over_monolithic=fps["disagg_repeated"] / fps["monolithic_repeated"],
+         hit_rate={k: v[1]["cache"]["hit_rate"] for k, v in lanes.items() if v[1]},
+         stage_p50_ms={k: {name: st.get("latency_p50_ms") for name, st in
+                           v[1]["per_stage"].items()} for k, v in lanes.items() if v[1]},
+         card=card)
+
+    # -- open loop: a started fleet, calibrated closed loop, then Poisson -----
+    pool = [f.pixels for f in SyntheticVideoSource(seed=7, frame_shape=(112, 112),
+                                                   n_frames=DISAGG_POOL).frames()]
+    pool_want = [cpu_sweep("fixed", px[None]) for px in pool]
+
+    def fleet(max_queue, cache_capacity=DISAGG_POOL + 4):
+        return DisaggServer(params, backend="fixed_cuda", stride=SWEEP_STRIDE, n_trunk=2,
+                            n_head=2, n_workers=4, cache_capacity=cache_capacity,
+                            max_queue=max_queue)
+
+    def settle(label, srv, uids, which, injected=None):
+        """Every query served or shed with a reason, every ledger accounted,
+        every served score equal to the CPU's; no replica faulted and no
+        query or stage request shed as "fault", but the failover run's own
+        fault (`injected`: the one replica's name and its fault's class),
+        so a kernel that fails cannot pass as sheds; returns (stats,
+        results)."""
+        res, shed = srv.pop_results(uids), srv.pop_shed(uids)
+        st = srv.stats()
+        faults = {e.name: e.fault for e in srv.trunks + srv.heads if e.fault is not None}
+        expect(all(injected is not None and name == injected[0]
+                   and isinstance(f, injected[1]) for name, f in faults.items()),
+               f"disagg {label}: replicas faulted: {faults}")
+        expect("fault" not in st["shed_by_reason"]
+               and all("fault" not in s["shed_by_reason"] for name, s in st["per_stage"].items()
+                       if injected is None or name != injected[0]),
+               f"disagg {label}: sheds as fault: {st['shed_by_reason']}, "
+               f"{ {k: s['shed_by_reason'] for k, s in st['per_stage'].items()} }")
+        expect(st["accounted"] and st["pending"] == 0 and len(res) + len(shed) == len(uids)
+               and all(s["accounted"] for s in st["per_stage"].values()),
+               f"disagg {label}: {len(res)} served + {len(shed)} shed of {len(uids)}, "
+               f"ledger {st['submitted']} {st['n']} {st['shed']} {st['pending']}")
+        expect(all(shed.values()), f"disagg {label}: a shed without a reason")
+        for uid, r in res.items():
+            compare_scores(r.scores, pool_want[which[uid]], 0.0, f"disagg {label} query {uid}")
+        return st, res
+
+    cal = fleet(None).start()
+    try:
+        uids = [cal.submit(px) for px in pool * DISAGG_PASSES]
+        cal.wait(uids, timeout=300)
+    finally:
+        cal.stop(drain=True)
+    st, _ = settle("calibration", cal, uids, {u: i % DISAGG_POOL for i, u in enumerate(uids)})
+    expect(st["n"] == len(uids), f"disagg calibration: served {st['n']} of {len(uids)}")
+    capacity = st["n"] / st["wall_s"]
+    open_loop = []
+    for frac in (1 / 8, 1 / 2):
+        gen = LoadGen(process="poisson", rate_qps=capacity * frac,
+                      n_requests=DISAGG_OPEN_LOOP_REQUESTS, n_streams=4, seed=7)
+        srv = fleet(DISAGG_MAX_QUEUE).start()
+        uids, which = [], {}
+
+        def submit(a, t, srv=srv, uids=uids, which=which):
+            uid = srv.submit(pool[a.uid % DISAGG_POOL], deadline_ms=DISAGG_SLO_MS, t_submit=t)
+            uids.append(uid)
+            which[uid] = a.uid % DISAGG_POOL
+        t0 = time.perf_counter()
+        try:
+            gen.replay(submit)
+            srv.wait(uids, timeout=300)
+        finally:
+            srv.stop(drain=True)
+        wall_s = time.perf_counter() - t0
+        st, res = settle(f"open loop {frac}", srv, uids, which)
+        open_loop.append({"fraction": frac, "offered_qps": gen.offered_qps,
+                          "requests": len(uids), "served_per_wall_s": len(res) / wall_s,
+                          "goodput": st.get("goodput"),
+                          "latency_p50_ms": st.get("latency_p50_ms"),
+                          "latency_p99_ms": st.get("latency_p99_ms"),
+                          "shed_by_reason": st["shed_by_reason"],
+                          "hit_rate": st["cache"]["hit_rate"],
+                          "stage_p50_ms": {k: s.get("latency_p50_ms")
+                                           for k, s in st["per_stage"].items()}})
+    emit("disagg", path="open loop: 2 trunks, 2 heads, started, fixed_cuda",
+         capacity_qps=capacity, calibration_queries=DISAGG_POOL * DISAGG_PASSES,
+         deadline_ms=DISAGG_SLO_MS, runs=open_loop, card=card)
+
+    # -- failover: trunk 0 faulted mid-run by an injected fault ---------------
+    class InjectedFault(RuntimeError):
+        """The failover check's own fault, told apart from any other."""
+
+    def faulty(payload):
+        raise InjectedFault("injected fault: trunk 0")
+
+    srv = fleet(None, cache_capacity=8).start()          # churn: the trunks keep working
+    uids, which = [], {}
+    try:
+        for i, px in enumerate(pool * DISAGG_FAILOVER_PASSES):
+            if i == len(pool):                # the first pass served, then the fault
+                srv.wait(uids, timeout=300)
+                srv.trunks[0]._compute = faulty
+            uid = srv.submit(px)
+            uids.append(uid)
+            which[uid] = i % DISAGG_POOL
+        srv.wait(uids, timeout=300)
+    finally:
+        srv.stop(drain=True)
+    st, res = settle("failover", srv, uids, which, injected=("trunk0", InjectedFault))
+    trunk0 = st["per_stage"]["trunk0"]
+    expect(isinstance(srv.trunks[0].fault, InjectedFault)
+           and trunk0["shed_by_reason"].get("fault", 0) >= 1,
+           f"disagg failover: the injected fault did not fire ({srv.trunks[0].fault!r})")
+    emit("disagg", path="failover: trunk 0 faulted after the first pass", queries=len(uids),
+         served=len(res), shed_by_reason=st["shed_by_reason"],
+         trunk0_shed_by_reason=trunk0["shed_by_reason"],
+         per_trunk_served={e.name: st["per_stage"][e.name]["n"] for e in srv.trunks},
+         hit_rate=st["cache"]["hit_rate"], card=card)
+    return runs
+
+
+def disagg_export(source, sweep, params, want, card) -> None:
+    """The repeated clip once more, with tracing on, and the run read back
+    through the obs export: the flight recorder's spans through
+    `dump_jsonl` / `load_jsonl`, the registry's Prometheus text through
+    `dump_prometheus` / `parse_prometheus` (both under build/obs/, beside
+    the built kernels), each held against the run's own ledgers; no
+    recorder trip; the first frame's waterfall printed.  The registry is
+    cleared first, so the dump holds this run's instruments only."""
+    import torch
+    from repro_torch.obs import metrics as M
+    from repro_torch.obs import recorder as R
+    from repro_torch.obs import trace as T
+    from repro_torch.serving.disagg import DisaggServer, frame_digest
+    from repro_torch.streaming import StreamingPipeline
+
+    out = ROOT / "build" / "obs"
+    M.REGISTRY.clear()
+    tr = T.enable()
+    try:
+        with tr.span("server", "disagg-export"):           # construction and warm-up
+            srv = DisaggServer(params, backend="fixed_cuda", stride=SWEEP_STRIDE,
+                               cache_capacity=2 * DISAGG_DISTINCT)
+        for inst in M.REGISTRY.instruments():               # the clip's own marks
+            if isinstance(inst, M.Gauge):
+                inst.reset_hwm()
+        pipe = StreamingPipeline(source, srv, sweep)
+        clip = tr.start("clip", "disagg-export")
+        pipe.run()
+        torch.cuda.synchronize()
+        tr.end_at(clip, time.perf_counter())
+    finally:
+        T.disable()
+    rec = tr.recorder
+    spans = sorted(rec.spans(), key=lambda s: s.t_start)
+    frames, n = source.frames(), len(pipe.results)
+    ps, ss = pipe.stats(), srv.stats()
+    expect(rec.trip_counts() == {} and rec.evicted == 0 and len(rec) == len(spans),
+           f"disagg export: recorder trips {rec.trip_counts()}, evicted {rec.evicted}")
+    failures = R.reconcile(spans, frames_served=ps["frames_served"],
+                           frames_dropped=ps["frames_dropped"])
+    infer = [s for s in spans if s.name == "infer"]
+    expect(not failures and ps["frames_served"] == n and len(infer) == n
+           and all(s.tags.get("route") == "disagg" and s.status == "ok" for s in infer),
+           f"disagg export: spans against the ledger: {failures[:3]}, "
+           f"{len(infer)} infer spans for {n} frames")
+    for f, r in zip(frames, pipe.results):
+        expect(r.index == f.index and r.detections == want[frame_digest(f.pixels)],
+               f"disagg export: frame {f.index} detections differ from the CPU sweep's")
+    header, back = R.load_jsonl(rec.dump_jsonl(str(out / "disagg_spans.jsonl")))
+    expect(header["n_spans"] == len(spans)
+           and [b.to_dict() for b in back] == [s.to_dict() for s in spans],
+           "disagg export: the span dump does not read back as recorded")
+    prom = M.parse_prometheus(pathlib.Path(R.dump_prometheus(
+        str(out / "disagg_metrics.prom"))).read_text())
+
+    def total(prefix):
+        vals = [v for k, v in prom.items() if k.startswith(prefix + "{")]
+        return sum(vals), len(vals)
+
+    served = total("disagg_served_total")
+    per_stage = {name: st["n"] for name, st in ss["per_stage"].items()}
+    stage_served = sum(per_stage.values()), len(per_stage)
+    expect(served == (ss["n"], 1) and ss["n"] == n
+           and total("stage_served_total") == stage_served,
+           f"disagg export: Prometheus served {served}, stages {total('stage_served_total')}; "
+           f"the ledgers {ss['n']}, {stage_served}")
+    emit("disagg", path="obs export: the repeated clip traced, spans and Prometheus text "
+         "read back", spans=len(spans), frames=n,
+         infer_p50_ms=sorted(s.duration_s for s in infer)[n // 2] * 1e3,
+         clip_ms=clip.duration_s * 1e3, prometheus_series=len(prom),
+         stage_queue_hwm={k.split('"')[1]: v for k, v in prom.items()
+                          if k.startswith("stage_queue_depth_hwm{")},
+         waterfall=R.waterfall(spans, "frame-0", max_spans=12).splitlines(), card=card)
 
 
 def phase_profile(params, images, card):
@@ -2150,6 +2700,7 @@ def main() -> int:
               "(src/repro_torch and tests/golden are missing)", file=sys.stderr)
         return 3
     sys.path.insert(0, str(ROOT / "src"))
+    load_peaks()
     kind = torch.cuda.get_device_name(0)
     run(nvidia_smi_line(), kind, torch.cuda.device_count())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2161,9 +2712,14 @@ def main() -> int:
 def run(card: str, kind: str, count: int) -> None:
     """Every phase; raises on the first failure."""
     import torch
+    from repro_torch.analysis import mfu
     print(card, flush=True)
+    spec, plain = mfu.resolve()
+    expect(spec.name == "h100" and not plain,
+           f"mfu.resolve() gave {spec.name!r} (plain {plain}) for {kind!r}")
     emit("device", nvidia_smi=card, torch_device_name=kind, device_count=count,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, mfu_device=spec.name,
+         peaks={"mem_bw": spec.mem_bw, **spec.peak_flops}, peaks_source=spec.source)
 
     from repro_torch.kernels import _build
     _build.build_all()
@@ -2247,6 +2803,7 @@ def run(card: str, kind: str, count: int) -> None:
     runs += train_runs
     runs += phase_router(card, trained_np, q16_wall_qps)
     runs += phase_sweep(card)
+    runs += phase_disagg(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)
     for name, row in table.items():

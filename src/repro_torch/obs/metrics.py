@@ -1,8 +1,8 @@
 """Low-overhead metrics: counters, gauges, bounded histograms, one registry.
 
-A copy of the parts of `repro.obs.metrics` that the port's engine and
-streaming pipeline use (the port imports nothing from `repro`); keep the
-two in step.  The Prometheus export comes with the code that needs it.
+A copy of `repro.obs.metrics` (the port imports nothing from `repro`);
+keep the two in step.  For the same instruments, `to_prometheus` gives
+the reference's text.
 
 The serving stack used to keep ad-hoc python lists for every latency
 distribution (`StreamingPipeline._stage_s`, `VisionEngine._latencies`,
@@ -19,9 +19,10 @@ module replaces them:
               how many observations arrive; for runs shorter than the
               reservoir the reported percentiles are exact.
 
-  Registry    process-wide get-or-create by (name, labels).  Components
-              label their instruments with a unique instance label so
-              fleets of engines coexist in one registry.
+  Registry    process-wide get-or-create by (name, labels); the default
+              `REGISTRY` is what `recorder.dump_prometheus` exports.
+              Components label their instruments with a unique instance
+              label so fleets of engines coexist in one registry.
 
 Percentile convention (the ONE shared helper): `percentile(xs, q)` is
 NEAREST-RANK — the smallest sample whose cumulative fraction reaches q% —
@@ -33,7 +34,8 @@ routes through it.
 
 Thread model: instrument mutation is a single `+=` / `append` under the
 GIL and every serving-stack caller already holds its component lock at
-the call site.
+the call site; the exporter takes per-instrument snapshots, so a dump
+concurrent with serving sees a consistent (if momentarily stale) view.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ class Counter:
 
 class Gauge:
     """Last-set value + high-water mark (`hwm`) — queue depths, batch
-    occupancy."""
+    occupancy.  `set()` keeps the mark; `reset_hwm()` re-arms it."""
 
     __slots__ = ("name", "labels", "value", "hwm")
 
@@ -104,6 +106,9 @@ class Gauge:
         self.value = v
         if v > self.hwm:
             self.hwm = v
+
+    def reset_hwm(self) -> None:
+        self.hwm = self.value
 
 
 class Histogram:
@@ -177,7 +182,8 @@ class Registry:
     """Get-or-create instrument store keyed by (name, sorted labels).
     Re-requesting an existing key returns the SAME instrument (a metric is
     process state, not call state); requesting it as a different type
-    raises."""
+    raises.  `to_prometheus()` renders the whole registry in the text
+    exposition format."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -211,6 +217,84 @@ class Registry:
                   reservoir: int = RESERVOIR, **labels) -> Histogram:
         return self._get_or_make(Histogram, name, labels,
                                  buckets=buckets, reservoir=reservoir)
+
+    def instruments(self) -> list:
+        with self._lock:
+            return list(self._instruments.values())
+
+    def clear(self) -> None:
+        """Drop every instrument (test isolation, or a dump scoped to one
+        run; the serving stack never calls this)."""
+        with self._lock:
+            self._instruments.clear()
+
+    # -- export -------------------------------------------------------------
+
+    @staticmethod
+    def _fmt_labels(labels: dict, extra: dict | None = None) -> str:
+        merged = {**labels, **(extra or {})}
+        if not merged:
+            return ""
+        body = ",".join(f'{k}="{v}"' for k, v in sorted(merged.items()))
+        return "{" + body + "}"
+
+    @staticmethod
+    def _fmt_val(v) -> str:
+        if isinstance(v, float) and math.isinf(v):
+            return "+Inf" if v > 0 else "-Inf"
+        return repr(v) if isinstance(v, float) else str(v)
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format.  Counters exported as
+        `<name>_total`, gauges as `<name>` (+ `<name>_hwm`), histograms as
+        the standard cumulative `_bucket{le=...}` / `_sum` / `_count`
+        triple.  Values round-trip through `parse_prometheus` exactly
+        (repr for floats)."""
+        lines: list[str] = []
+        for inst in sorted(self.instruments(),
+                           key=lambda i: (i.name, sorted(i.labels.items()))):
+            lab = self._fmt_labels(inst.labels)
+            if isinstance(inst, Counter):
+                lines.append(f"# TYPE {inst.name}_total counter")
+                lines.append(
+                    f"{inst.name}_total{lab} {self._fmt_val(inst.value)}")
+            elif isinstance(inst, Gauge):
+                lines.append(f"# TYPE {inst.name} gauge")
+                lines.append(f"{inst.name}{lab} {self._fmt_val(inst.value)}")
+                lines.append(
+                    f"{inst.name}_hwm{lab} {self._fmt_val(inst.hwm)}")
+            elif isinstance(inst, Histogram):
+                lines.append(f"# TYPE {inst.name} histogram")
+                cum = 0
+                for le, n in zip(list(inst.buckets) + [math.inf],
+                                 inst.bucket_counts):
+                    cum += n
+                    le_lab = self._fmt_labels(
+                        inst.labels, {"le": self._fmt_val(float(le))})
+                    lines.append(f"{inst.name}_bucket{le_lab} {cum}")
+                lines.append(
+                    f"{inst.name}_sum{lab} {self._fmt_val(inst.sum)}")
+                lines.append(f"{inst.name}_count{lab} {inst.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def parse_prometheus(text: str) -> dict[str, float]:
+    """Parse the text exposition format back to {'name{labels}': value}.
+    Enough of the grammar for the round-trip tests and the reconciliation
+    tooling (one metric per line, no escapes inside label values)."""
+    out: dict[str, float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        key, _, val = line.rpartition(" ")
+        if not key:
+            raise ValueError(f"unparseable metric line: {line!r}")
+        v = math.inf if val == "+Inf" else (-math.inf if val == "-Inf"
+                                            else float(val))
+        out[key] = v
+    return out
+
 
 # the process-wide registry: every serving component registers here
 REGISTRY = Registry()

@@ -1,9 +1,7 @@
 """Flight recorder: a bounded ring of recent spans + crash-dump triggers.
 
-A copy of the parts of `repro.obs.recorder` that the port's engine uses
-(the port imports nothing from `repro`); keep the two in step.  The dump
-reader, the Prometheus dump and the waterfall view come with the code
-that needs them.
+A copy of `repro.obs.recorder` (the port imports nothing from `repro`);
+keep the two in step.
 
 The recorder is the retention policy of the tracing layer: finished spans
 land in a `deque(maxlen=capacity)` — a year of serving retains exactly as
@@ -20,7 +18,7 @@ failures are the diagnosable ones, the ten-thousandth is noise) and write
 
 Dump format: one span per line (see `trace.Span.to_dict`), sorted by
 `t_start`, preceded by one header line `{"flight_recorder": {...}}` with
-the dump reason/detail/capacity.
+the dump reason/detail/capacity.  `load_jsonl` round-trips it.
 
 `reconcile()` is the span/ledger cross-check:
 every root span ends in exactly ONE terminal state, terminal counts equal
@@ -59,6 +57,9 @@ class FlightRecorder:
         # threads never contend on a lock per finished span.
         self._recorded += 1
         self._ring.append(span)
+
+    def __len__(self) -> int:
+        return len(self._ring)
 
     def spans(self) -> list[Span]:
         """Snapshot of the ring, oldest first."""
@@ -100,6 +101,32 @@ class FlightRecorder:
         d = self.dump_dir or "."
         path = os.path.join(d, f"flight_{reason}_{n}.jsonl")
         return self.dump_jsonl(path, reason=reason, detail=detail)
+
+    def trip_counts(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._trips)
+
+
+def load_jsonl(path: str) -> tuple[dict, list[Span]]:
+    """Read a dump back: (header dict, spans)."""
+    with open(path) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    if not lines or "flight_recorder" not in lines[0]:
+        raise ValueError(f"{path}: not a flight-recorder dump "
+                         "(missing header line)")
+    return lines[0]["flight_recorder"], [Span.from_dict(d) for d in lines[1:]]
+
+
+def dump_prometheus(path: str, registry=None) -> str:
+    """Write the registry's Prometheus text exposition next to the trace
+    dump (the other half of the `--trace` artifact pair)."""
+    from repro_torch.obs import metrics
+    reg = registry if registry is not None else metrics.REGISTRY
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(reg.to_prometheus())
+    return path
+
 
 # -- span/ledger reconciliation ----------------------------------------------
 
@@ -174,3 +201,37 @@ def reconcile(spans: list[Span], *, frames_served: int | None = None,
                     f"{p.name}#{p.span_id}'s window")
     return failures
 
+
+def waterfall(spans: list[Span], trace_id: str, *, width: int = 48,
+              max_spans: int | None = None) -> str:
+    """Render one trace as an ASCII waterfall (the stream_demo view):
+    each span a bar positioned on the trace's own clock.  `max_spans`
+    truncates busy traces (a frame fans out into dozens of request spans)
+    with an explicit "+N more" line."""
+    ts = [s for s in spans if s.trace_id == trace_id and s.t_end is not None]
+    if not ts:
+        return f"(no spans for trace {trace_id})"
+    ts.sort(key=lambda s: (s.t_start, s.span_id))
+    hidden = 0
+    if max_spans is not None and len(ts) > max_spans:
+        hidden = len(ts) - max_spans
+        ts = ts[:max_spans]
+    t0 = min(s.t_start for s in ts)
+    t1 = max(s.t_end for s in ts)
+    total = max(t1 - t0, 1e-9)
+    depth = {}
+    for s in ts:
+        depth[s.span_id] = (depth.get(s.parent_id, -1) + 1
+                            if s.parent_id in depth or s.parent_id is None
+                            else 1)
+    lines = [f"trace {trace_id}  ({total * 1e3:.1f} ms total)"]
+    for s in ts:
+        a = int((s.t_start - t0) / total * width)
+        b = max(a + 1, int((s.t_end - t0) / total * width))
+        bar = " " * a + "#" * (b - a) + " " * (width - b)
+        label = "  " * depth.get(s.span_id, 0) + s.name
+        lines.append(f"  {label:<22s} |{bar}| {s.duration_s * 1e3:7.2f} ms"
+                     f"  {s.status}")
+    if hidden:
+        lines.append(f"  ... (+{hidden} more spans)")
+    return "\n".join(lines)

@@ -22,8 +22,7 @@ in a bounded `recorder.FlightRecorder` ring.
 The opt-in torch.profiler bridge (`profile_device_steps()`) wraps every
 engine device step in `torch.profiler.record_function`, so a
 `torch.profiler` trace of the card shows the same step boundaries the spans
-do.  (Port of the parts of `repro.obs.trace` that the engine uses; only
-that bridge changed.)
+do.  (Port of `repro.obs.trace`; only that bridge changed.)
 """
 from __future__ import annotations
 
@@ -59,6 +58,10 @@ class Span:
         return (self.status == "served" or self.status.startswith("shed:")
                 or self.status.startswith("dropped:"))
 
+    @property
+    def duration_s(self) -> float | None:
+        return None if self.t_end is None else self.t_end - self.t_start
+
     def to_dict(self) -> dict:
         d = {"name": self.name, "trace_id": self.trace_id,
              "span_id": self.span_id, "parent_id": self.parent_id,
@@ -67,6 +70,14 @@ class Span:
         if self.tags:
             d["tags"] = self.tags
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Span":
+        return cls(name=d["name"], trace_id=d["trace_id"],
+                   span_id=d["span_id"], parent_id=d.get("parent_id"),
+                   t_start=d["t_start"], t_end=d.get("t_end"),
+                   status=d.get("status", "open"),
+                   tags=d.get("tags", {}))
 
 class Tracer:
     """Hands out spans and pushes finished ones to the flight recorder.
@@ -94,6 +105,19 @@ class Tracer:
         span.status = status
         if tags:
             span.tags.update(tags)
+        self._record(span)
+        return span
+
+    def end_at(self, span: Span, t: float, status: str = "ok") -> Span:
+        """Fast-path end with a pre-read clock value: hot loops (the engine
+        ending a whole batch's request spans at one step boundary) pay one
+        perf_counter read and no tag kwargs for the lot.  Tags can be set
+        directly on `span.tags` before the call."""
+        if span.t_end is not None:
+            raise RuntimeError(f"span {span.name}#{span.span_id} already "
+                               f"ended ({span.status!r})")
+        span.t_end = t
+        span.status = status
         self._record(span)
         return span
 
@@ -127,6 +151,18 @@ class Tracer:
         at-the-door shed): started and ended at the same instant."""
         return self.end(self.start(name, trace_id, parent=parent, **tags),
                         status)
+
+    @contextlib.contextmanager
+    def span(self, name: str, trace_id: str, *,
+             parent: Span | None = None, **tags):
+        s = self.start(name, trace_id, parent=parent, **tags)
+        try:
+            yield s
+        except BaseException:
+            self.end(s, "error")
+            raise
+        self.end(s)
+
 
 # -- the process-wide switch --------------------------------------------------
 

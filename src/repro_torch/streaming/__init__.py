@@ -11,5 +11,5 @@ deadlines (`pipeline`).
 from repro_torch.streaming.fcn_sweep import FcnSweep  # noqa: F401
 from repro_torch.streaming.pipeline import StreamConfig, StreamingPipeline  # noqa: F401
 from repro_torch.streaming.sources import (Frame, PacedPlayer,  # noqa: F401
-                                           SyntheticVideoSource)
+                                           RepeatedClipSource, SyntheticVideoSource)
 from repro_torch.streaming.tiler import Detection, Tiler  # noqa: F401

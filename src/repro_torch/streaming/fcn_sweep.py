@@ -51,9 +51,11 @@ per frame 20 `conv2d`, 2 `maxpool2d` and 12 `sigmoid_pla` launches on
 
 The reference jits one program per geometry; here the sweep is a plain
 function on tensors, and only the window offsets and gather indices are
-cached, per (geometry, device).  `make_trunk_fn`/`make_head_fn` come with
-the disaggregated serving path; `_head_scores` is the head they will
-share.
+cached, per (geometry, device).  `make_trunk_fn`/`make_head_fn` split the
+same sweep into its two halves for `serving/disagg.py`: the trunk
+(`_trunk_quad`) and the head (`_head_scores`, on the route `_sweep` takes
+for the same `megakernel`), so a score from a cached quad is the
+monolithic call's word on every route.
 """
 from __future__ import annotations
 
@@ -249,6 +251,50 @@ def _sweep(be: B.Backend, params: Any, frame: torch.Tensor, patch: int,
     p = be.prepare_params(params, frame.device)
     quad = _trunk_quad(be, p, frame, megakernel)
     return _head_scores(be, p, quad, patch, positions, fused=megakernel is not False)
+
+
+@functools.lru_cache(maxsize=32)
+def make_trunk_fn(backend: str | B.Backend, megakernel: bool | None = None):
+    """The TRUNK half of the sweep for a backend: (params, (1,H,W,1) float
+    frame tensor) -> the level-2 role-map quad (I, B, R, C) in the
+    backend's native domain, on the frame's device.  This is the heavy
+    per-frame stage the disaggregated server (`serving/disagg.py`) runs on
+    its trunk pool and caches per frame digest; `make_head_fn` scores
+    windows from the result.  `megakernel` routes as in `_trunk_quad`.
+    Inference mode is thread-local, so the function sets it itself: the
+    server's replicas call it on threads of their own."""
+    be = B.get_backend(backend)
+    _check_saturation(be)
+
+    def run(params, frames: torch.Tensor):
+        with torch.inference_mode():
+            return _trunk_quad(be, be.prepare_params(params, frames.device), frames,
+                               megakernel)
+
+    return run
+
+
+@functools.lru_cache(maxsize=64)
+def make_head_fn(backend: str | B.Backend, patch: int,
+                 positions: tuple[tuple[int, int], ...],
+                 megakernel: bool | None = None):
+    """The HEAD half of the sweep: (params, role-map quad) -> (Nw, 10)
+    backend-native window scores for a fixed window lattice, on the
+    quad's device.  It runs `_head_scores` on the route `_sweep` takes for
+    the same `megakernel` (the one-launch window head unless it is False),
+    so head-pool scores from a cached quad are the monolithic sweep's
+    words on every route.  The reference's head takes no route: there
+    both heads are one XLA program."""
+    be = B.get_backend(backend)
+    _check_saturation(be)
+    fused = megakernel is not False
+
+    def run(params, quad):
+        with torch.inference_mode():
+            return _head_scores(be, be.prepare_params(params, quad[0].device), quad,
+                                patch, positions, fused=fused)
+
+    return run
 
 
 def sweep_feature_maps(params: Any, frame, *,

@@ -19,7 +19,9 @@ fabric, so a slow stage means dropped frames, not unbounded queues:
              ingesting on schedule.  In sweep mode the wave is instead ONE
              full-frame sweep, `FcnSweep.score` on the engine's params and
              backend, on the engine's device (one `frame_trunk` launch and
-             one head launch on `fixed_cuda`).
+             one head launch on `fixed_cuda`); an engine with a callable
+             `score_frame` (`serving/disagg.DisaggServer`) scores the frame
+             itself, through its trunk and head pools.
   aggregate  confidence thresholding + dedup -> `FrameResult` (identical
              code path for both tilers: scores in, Detections out).
 
@@ -32,8 +34,9 @@ counters live in the process-wide metrics registry, and with tracing
 enabled (`obs.trace.enable()`) every frame carries a root span
 `frame-<index>` with tile/infer/aggregate child spans and exactly one
 terminal status — "served" or "dropped:<stage>/<reason>".  A deadline miss
-or a broken ledger trips the flight recorder.  The disaggregated
-(`score_frame`) route comes with the disaggregated serving path.
+or a broken ledger trips the flight recorder.  On the disaggregated
+(`score_frame`) route the infer span's `route` tag is "disagg", and a
+query the server sheds (an exception with a `.reason`) is a dropped frame.
 """
 from __future__ import annotations
 
@@ -119,7 +122,12 @@ class StreamingPipeline:
                 "sweep mode scores whole frames through the engine's model, "
                 f"but {type(engine).__name__} exposes no params/backend "
                 "(use a VisionEngine, or any object with .params/.backend)")
-        if self.sweep and hasattr(source, "frame_shape"):
+        # disaggregated engines (serving/disagg.DisaggServer) score whole
+        # frames through their own trunk/head pools instead of the tiler's
+        # monolithic sweep; they also warm both halves at construction, so
+        # the pipeline-side warmup is theirs to skip
+        self._disagg = self.sweep and callable(getattr(engine, "score_frame", None))
+        if self.sweep and not self._disagg and hasattr(source, "frame_shape"):
             # run the whole-frame sweep once BEFORE the clip starts (the
             # VisionEngine warmup idiom): the first call builds the kernels,
             # which would otherwise blow every deadline in realtime mode
@@ -266,10 +274,23 @@ class StreamingPipeline:
         across waves (continuous batching) and `serve()` pops its own
         results, so the engine's resident state stays O(batch) over an
         unbounded clip.  Returns None when the engine shed any of the
-        frame's tiles — a partially-scored frame is a dropped frame."""
+        frame's tiles — a partially-scored frame is a dropped frame; on the
+        disaggregated route, None when the server shed the query."""
+        eng = self.engine
+        if self._disagg:
+            try:
+                if item.span is not None:
+                    return eng.score_frame(item.tiles, parent_span=item.span)
+                return eng.score_frame(item.tiles)
+            except Exception as e:    # noqa: BLE001 — sheds carry .reason
+                # a DisaggShedError (queue_depth / deadline / fault after
+                # failover) is the fleet declining the frame, not a bug:
+                # surface it as a dropped frame like an engine shed
+                if hasattr(e, "reason"):
+                    return None
+                raise
         if self.sweep:
             return self._sweep_frame(item.tiles)
-        eng = self.engine
         if self._serve_takes_span and item.span is not None:
             res = eng.serve(list(item.tiles), parent_span=item.span)
         else:
@@ -291,7 +312,9 @@ class StreamingPipeline:
                 continue
             t0 = time.perf_counter()
             child = (tr.start("infer", item.span.trace_id, parent=item.span,
-                              route="sweep" if self.sweep else "engine")
+                              route=("disagg" if self._disagg
+                                     else "sweep" if self.sweep
+                                     else "engine"))
                      if tr is not None and item.span is not None else None)
             item.scores = await loop.run_in_executor(
                 None, self._serve_wave, item)

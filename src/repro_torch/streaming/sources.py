@@ -12,8 +12,9 @@ simulated.
 
 Determinism contract: a source is seeded and every iteration replays the
 identical clip (fresh rng per `__iter__`), so a "frozen clip" is just a
-(source, seed) pair.  `RepeatedClipSource` comes with the disaggregated
-serving path.
+(source, seed) pair.  `RepeatedClipSource` emits each frame of a clip
+several times in a row, sharing its pixel array: the repeated-query traffic
+that `serving/disagg.DisaggServer`'s feature-map cache serves from memory.
 """
 from __future__ import annotations
 
@@ -155,6 +156,42 @@ class SyntheticVideoSource:
 
     def frames(self) -> list[Frame]:
         """Materialize the whole clip (the frozen-clip view for tests)."""
+        return list(self)
+
+
+class RepeatedClipSource:
+    """Query-repetition wrapper: every frame of the base clip is emitted
+    `repeats` times in a row, with fresh frame indices.
+
+    This is the workload shape the disaggregated serving path exists for —
+    overlapping window queries, re-scores under new thresholds, fan-out to
+    several consumers — where the SAME pixels are queried repeatedly.  The
+    repeated emissions share the base frame's pixel array, so a
+    content-keyed feature-map cache (serving/disagg.FeatureMapCache) sees
+    `repeats - 1` hits per distinct frame; a monolithic sweep recomputes
+    the trunk for every one of them.  The wrapper is itself a seeded
+    `FrameSource` (determinism rides on the base clip's contract).
+    """
+
+    def __init__(self, source: FrameSource, *, repeats: int = 4):
+        if repeats < 1:
+            raise ValueError(f"repeats must be >= 1, got {repeats}")
+        self.source = source
+        self.repeats = int(repeats)
+        self.frame_shape = source.frame_shape
+
+    def __len__(self) -> int:
+        return len(self.source) * self.repeats
+
+    def __iter__(self) -> Iterator[Frame]:
+        i = 0
+        for frame in self.source:
+            for _ in range(self.repeats):
+                yield Frame(index=i, pixels=frame.pixels,
+                            truth=frame.truth, t_source=frame.t_source)
+                i += 1
+
+    def frames(self) -> list[Frame]:
         return list(self)
 
 

@@ -23,7 +23,9 @@ bad = sorted(m for m in sys.modules
 new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
        "repro_torch.kernels.maxpool2d.ops", "repro_torch.kernels.sigmoid_pla.ops",
        "repro_torch.core.deploy", "repro_torch.optim.adam",
-       "repro_torch.streaming.loadgen", "repro_torch.serving.router"]
+       "repro_torch.streaming.loadgen", "repro_torch.serving.router",
+       "repro_torch.serving.disagg", "repro_torch.analysis.mfu",
+       "repro_torch.analysis.launches"]
 assert all(m in names for m in new), sorted(set(new) - set(names))
 print(len(names), bad)
 """
