@@ -104,7 +104,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   router    ReplicaRouter.from_backends(trained params, [fixed_cuda,
             fixed_cuda, cuda_plan], batch_size=64, policy="slo",
             slo_ms=50): first its capacity (4096 requests submitted at
-            once, drained closed loop), then LoadGen open loop: Poisson
+            once, drained closed loop), twice, in turns with a started
+            Q16.16 engine's wall rate over 1024 requests (engine, fleet,
+            engine, fleet): the fleet's median held to 0.3 of the
+            engine's median of the same window, the ratio to the serve
+            phase's engine rate printed too; then LoadGen open loop: Poisson
             requests at 1/8, 1/4 and half that capacity (2048, 2048, 4096)
             and 4096 bursty ones at twice it (the serve phase's Q16.16 engine rate printed beside:
             the fleet's host work caps it far below); then a failover run (a replica whose first
@@ -150,6 +154,24 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             frame_digest's time; a started fleet (2 trunks, 2 heads):
             closed-loop capacity, then LoadGen Poisson at 1/8 and 1/2 of it
             with a 50 ms deadline; failover with trunk 0 faulted mid-run
+  lm        the LM scaffold's serving path (`phase_lm`; no csrc kernel
+            on it, products as torch.matmul/einsum): all ten archs at
+            .smoke() width (float32, the port's seeded init) on the card
+            against the CPU, forward, prefill and one decode step, every
+            tensor compared within 1e-4 and on the card; the decode-vs-
+            forward properties on the card (granite 2e-3, rwkv6 3e-3);
+            then granite-3-2b at full width (2.534 B params drawn on the
+            card, seed 0): two float32 decode steps at batch 2 against the
+            CPU within 2e-3; the reference launcher's workload (16
+            requests, 6-token prompts from numpy seed 0, 8 new tokens,
+            Engine(batch_size=4, max_len=64), 52 steps) served in
+            bfloat16 twice (tokens equal; the second under the profiler:
+            the device busy share), in float32 (the share of equal
+            tokens), and straight from ptq.quantize_tree's int8
+            QuantTensors (quantization_error, token agreement): tokens/s,
+            the median step against its bound (the weight bytes a step
+            reads over 3.35 TB/s), peak memory; then launch.serve.main on
+            the card, with and without --int8
   host      16 synchronous served steps: wall time per step against the
             engine's busy window per step, and the host time outside it
   profile   a torch.profiler trace of 16 served steps, then one of 16 sweep
@@ -157,6 +179,11 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   kernels   one line listing every ported kernel (launches counted on the
             serve, composed, train, ladder, latency, router, sweep and disagg
             paths, reset to 0 before each and read after)
+  profiler  only where a profiled window (20 ms of host idle at each end)
+            lost all its device activity: a device time or a launch count
+            of a call that gives the same each time is measured again, at
+            most 3 windows; the disagg clip's count and the lm busy share
+            are not ("not measured" for the busy share)
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.  Any
 mismatch or failure raises; without CUDA, or outside a checkout of the
@@ -164,6 +191,7 @@ repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -215,7 +243,21 @@ DISAGG_OPEN_LOOP_REQUESTS = 512
 DISAGG_MAX_QUEUE = 128
 DISAGG_SLO_MS = 50.0
 DISAGG_FAILOVER_PASSES = 4
+# host idle at each end of a profiled window, and the windows a device time
+# may take (`device_trace`, `profiled_device_ms`)
+PROFILE_PAD_S = 0.02
+PROFILE_TRIES = 3
 SATURATING = ("q16_16", "q16_16_sat", "q8_8_sat")   # a case timed in these formats too
+# the lm phase: the served arch at full width and the reference launcher's
+# workload (16 requests, 6-token prompts, 8 new tokens, batch 4, max_len
+# 64: 52 decode steps); float32 tolerances, card against CPU, rtol = atol:
+# the smoke families (a few layers) and two full-width decode steps (40
+# layers, logits of order 1)
+LM_ARCH = "granite-3-2b"
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_BATCH, LM_MAX_LEN = 16, 6, 8, 4, 64
+LM_STEPS = 52
+LM_SMOKE_TOL = 1e-4
+LM_FULL_TOL = 2e-3
 
 KERNELS = {
     "fixed_conv2d": ("src/repro_torch/csrc/fixed_conv.cu",
@@ -347,23 +389,58 @@ def load_peaks() -> str:
     return h100.source
 
 
+@contextlib.contextmanager
+def device_trace(*activities):
+    """torch.profiler over the block, with PROFILE_PAD_S of host idle at
+    each end of the window.  On the H100 the profiler lost all the device
+    activity of 21 in 3,092 windows of three short launches without pads,
+    and of none of 3,092 with 5 or 20 ms pads
+    (`python -m repro_torch.analysis.profiler_windows`); a window's reader
+    still checks that it saw some."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=list(activities) or [ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        time.sleep(PROFILE_PAD_S)
+
+
 def profiled_device_ms(fn, reps: int) -> float:
     """Device time of one call of `fn`: the durations of the device
     activity (kernels, copies, fills) that torch.profiler saw over `reps`
     calls, summed, over `reps`.  Gaps between launches are not counted, and
-    a call that waits on the host is timed right."""
+    a call that waits on the host is timed right.  A window in which the
+    profiler saw no device activity is measured again, up to PROFILE_TRIES
+    windows (each one printed), then fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    expect(us > 0, "profiled_device_ms: the profiler saw no device activity")
-    return us / reps / 1e3
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with device_trace() as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+        emit("profiler", note="a profiled window saw no device activity", window=attempt,
+             of=PROFILE_TRIES, reps=reps)
+    raise SmokeError(f"profiled_device_ms: the profiler saw no device activity in "
+                     f"{PROFILE_TRIES} windows")
+
+
+def retried_launches(fn, *args, **kwargs) -> dict[str, int]:
+    """`analysis/launches.count_launches` of a call that may run again
+    (it gives the same launches each time): a window in which the profiler
+    lost all device activity is measured again, up to PROFILE_TRIES
+    windows (each loss printed), then fails."""
+    from repro_torch.analysis.launches import LostWindow, count_launches
+    for attempt in range(1, PROFILE_TRIES + 1):
+        try:
+            return count_launches(fn, *args, **kwargs)
+        except LostWindow as e:
+            emit("profiler", note=str(e), window=attempt, of=PROFILE_TRIES)
+    raise SmokeError(f"count_launches: the profiler lost {PROFILE_TRIES} windows")
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -1557,8 +1634,11 @@ def phase_router(card: str, params_np: dict, q16_wall_qps: float) -> list[dict]:
     """`ReplicaRouter` over the port's engines on the card, with the trained
     params: two Q16.16 replicas and a `cuda_plan` one under the slo policy
     (slo_ms 50).  First the fleet's own capacity: 4096 requests submitted
-    at once and drained closed loop; it must reach CAPACITY_FLOOR of the
-    Q16.16 engine's wall rate from the serve phase.  Then `LoadGen` open
+    at once and drained closed loop, twice, in turns with a Q16.16
+    engine's wall rate over N_REQUESTS (engine, fleet, engine, fleet); the
+    fleet's median must reach CAPACITY_FLOOR of the engine's median of the
+    same window (the serve phase's rate, minutes earlier, moved 1.9x
+    between runs of one tree; the ratio to it is printed).  Then `LoadGen` open
     loop: Poisson at 1/8 of the fleet's capacity, with goodput at least
     MIN_GOODPUT and p50 at most MAX_P50_MS; at 1/4 and half of it, at half the Q16.16 engine's rate,
     and bursty at twice that, printed, not held (the fleet's open-loop
@@ -1687,28 +1767,63 @@ def phase_router(card: str, params_np: dict, q16_wall_qps: float) -> list[dict]:
         return counts, st
 
     fleet = ["fixed_cuda", "fixed_cuda", "cuda_plan"]
-    # the fleet's capacity: 4096 requests at once, drained closed loop (a
-    # 60 s deadline, so none lapses while the burst is being queued)
-    router = ReplicaRouter.from_backends(params, fleet, batch_size=ENGINE_BATCH,
-                                         policy="slo", slo_ms=50)
     images, _ = synth_mnist.make_dataset(4096, seed=10)
-    reset_launches()
-    uids = warm_up(router, images)
-    n_warm = len(uids)
-    t0 = time.perf_counter()
-    uids += router.submit_many(list(images), deadline_ms=60_000.0)
-    router.wait(uids)
-    wall_s = time.perf_counter() - t0
-    counts, capacity_qps, _ = check("closed-loop capacity", router, None,
-                                    np.concatenate([images[:n_warm], images]), uids, wall_s,
-                                    launches(), n_warm=n_warm)
-    runs = [counts]
-    emit("router", run="rates", q16_engine_wall_qps=q16_wall_qps,
-         fleet_capacity_qps=capacity_qps, capacity_floor=CAPACITY_FLOOR,
-         min_goodput=MIN_GOODPUT, max_p50_ms=MAX_P50_MS, card=card)
-    expect(capacity_qps >= CAPACITY_FLOOR * q16_wall_qps,
+
+    def engine_rate():
+        """One started Q16.16 engine's wall rate over N_REQUESTS, as the
+        serve phase measures it: one fixed_smallnet launch a step."""
+        eng = VisionEngine(params, backend="fixed_cuda", batch_size=ENGINE_BATCH,
+                           device="cuda")
+        reset_launches()
+        eng.start()
+        try:
+            t0 = time.perf_counter()
+            res = eng.serve(list(images[:N_REQUESTS]))
+            wall_s = time.perf_counter() - t0
+        finally:
+            eng.stop()
+        counts = launches()
+        expect(all(r is not None for r in res)
+               and counts == {"fixed_smallnet": eng.stats()["batches"]},
+               f"router: the Q16.16 engine's run shed a request or launched {counts}")
+        return counts, N_REQUESTS / wall_s
+
+    def capacity():
+        """The fleet's capacity: 4096 requests at once, drained closed loop
+        (a 60 s deadline, so none lapses while the burst is being queued)."""
+        router = ReplicaRouter.from_backends(params, fleet, batch_size=ENGINE_BATCH,
+                                             policy="slo", slo_ms=50)
+        reset_launches()
+        uids = warm_up(router, images)
+        n_warm = len(uids)
+        t0 = time.perf_counter()
+        uids += router.submit_many(list(images), deadline_ms=60_000.0)
+        router.wait(uids)
+        wall_s = time.perf_counter() - t0
+        return check("closed-loop capacity", router, None,
+                     np.concatenate([images[:n_warm], images]), uids, wall_s,
+                     launches(), n_warm=n_warm)[:2]
+
+    # the capacity bar divides two host-bound rates, so both are taken in
+    # one window, in turns: engine, fleet, engine, fleet; medians of each
+    runs, engine_qps, fleet_qps = [], [], []
+    for _ in range(2):
+        for rates, measure in ((engine_qps, engine_rate), (fleet_qps, capacity)):
+            counts, qps = measure()
+            runs.append(counts)
+            rates.append(qps)
+    capacity_qps = statistics.median(fleet_qps)
+    window_qps = statistics.median(engine_qps)
+    emit("router", run="rates", q16_engine_wall_qps_same_window=engine_qps,
+         fleet_capacity_qps_runs=fleet_qps, q16_engine_wall_qps=window_qps,
+         fleet_capacity_qps=capacity_qps, capacity_ratio=capacity_qps / window_qps,
+         q16_engine_wall_qps_serve_phase=q16_wall_qps,
+         capacity_ratio_serve_phase=capacity_qps / q16_wall_qps,
+         capacity_floor=CAPACITY_FLOOR, min_goodput=MIN_GOODPUT, max_p50_ms=MAX_P50_MS,
+         card=card)
+    expect(capacity_qps >= CAPACITY_FLOOR * window_qps,
            f"router: the fleet drains {capacity_qps:.0f} requests/s closed loop, under "
-           f"{CAPACITY_FLOOR} of one Q16.16 engine's {q16_wall_qps:.0f}")
+           f"{CAPACITY_FLOOR} of one Q16.16 engine's {window_qps:.0f} in the same window")
     # open loop at fractions of the fleet's own capacity, the eighth held to
     # MIN_GOODPUT and MAX_P50_MS; then at half the Q16.16 engine's rate and
     # bursty at twice that
@@ -1837,7 +1952,6 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
     import numpy as np
     import torch
     from repro_torch.core import backends as B
-    from repro_torch.analysis.launches import count_launches
     from repro_torch.core import fixed_point as fxp
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.serving.vision_engine import VisionEngine
@@ -1922,7 +2036,7 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
     # the same call's launches read by the profiler too, against the
     # wrappers' counts (count_launches raises where they differ)
     fb, _ = sweep.extract(frames[0])
-    seen = count_launches(sweep.score, eng.params, fb, backend=eng.backend, device="cuda")
+    seen = retried_launches(sweep.score, eng.params, fb, backend=eng.backend, device="cuda")
     expect(seen == {k: v for k, v in want_per_frame.items() if v},
            f"{label}: the profiler saw {seen} a frame, expected {want_per_frame}")
     emit("sweep", path=label, backend=eng.backend.name, fmt=fmt_of(eng.backend),
@@ -2534,6 +2648,280 @@ def disagg_export(source, sweep, params, want, card) -> None:
          waterfall=R.waterfall(spans, "frame-0", max_spans=12).splitlines(), card=card)
 
 
+# -- the LM scaffold's serving path --------------------------------------------
+
+def lm_tree_to(tree, device):
+    """An LM params or cache tree (dicts of tensors) copied to `device`."""
+    if isinstance(tree, dict):
+        return {k: lm_tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def lm_leaves(tree, path=""):
+    """(path, tensor) for every tensor of a tree of dicts and QuantTensors."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from lm_leaves(v, f"{path}['{k}']")
+    elif hasattr(tree, "q") and hasattr(tree, "scale"):
+        yield path + ".q", tree.q
+        yield path + ".scale", tree.scale
+    else:
+        yield path, tree
+
+
+def lm_compare(got: dict, want: dict, tol: float, what: str) -> float:
+    """Two trees of tensors (the card's run, the CPU's): the same keys,
+    shapes and dtypes, every tensor of `got` on the card, every value
+    within rtol = atol = `tol`; returns the largest absolute difference."""
+    import torch
+    got, want = dict(lm_leaves(got)), dict(lm_leaves(want))
+    expect(sorted(got) == sorted(want), f"{what}: keys {sorted(got)} != {sorted(want)}")
+    err = 0.0
+    for k, g in got.items():
+        w = want[k]
+        expect(g.is_cuda and not w.is_cuda, f"{what}{k}: devices {g.device}, {w.device}")
+        expect(g.shape == w.shape and g.dtype == w.dtype,
+               f"{what}{k}: {tuple(g.shape)} {g.dtype} != {tuple(w.shape)} {w.dtype}")
+        g = g.cpu().double()
+        w = w.double()
+        expect(bool(torch.isfinite(g).all()), f"{what}{k}: not finite")
+        expect(torch.allclose(g, w, rtol=tol, atol=tol),
+               f"{what}{k}: max abs err {float((g - w).abs().max())} past {tol}")
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+    return err
+
+
+def lm_smoke_families(card: str) -> None:
+    """All ten archs at `.smoke()` width (float32), params from the port's
+    init (a seeded torch.Generator on the CPU) copied to the card:
+    `forward` (logits, aux), `prefill` (logits, every cache leaf) and one
+    `decode_step` at the prompt's last position over the prefill cache
+    (logits, the updated cache) on the card against the same calls on the
+    CPU within LM_SMOKE_TOL; then the reference's decode-vs-forward
+    properties on the card (granite 2e-3, rwkv6 3e-3,
+    tests/test_models_smoke.py)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.models import transformer as T
+
+    errs = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).smoke()
+        params, _ = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        on = {"cpu": params, "cuda": lm_tree_to(params, "cuda")}
+        rng = np.random.default_rng(0)
+        nb = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)}
+        if cfg.family == "audio":
+            nb["frames"] = (0.1 * rng.standard_normal((2, cfg.encoder_frames, cfg.d_model))
+                            ).astype(np.float32)
+        if cfg.family == "vlm":
+            nb["vision"] = (0.1 * rng.standard_normal((2, cfg.vision_tokens, cfg.vit_dim))
+                            ).astype(np.float32)
+        out = {}
+        with torch.inference_mode():
+            for dev, p in on.items():
+                b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+                logits, aux = T.forward(cfg, p, b)
+                last, cache = T.prefill(cfg, p, b)
+                prefill_cache = {k: v.clone() for k, v in cache.items()}
+                step, cache = T.decode_step(cfg, p, cache, b["tokens"][:, -1:], 15)
+                out[dev] = {"forward": {"logits": logits, "aux": aux},
+                            "prefill": {"logits": last, **prefill_cache},
+                            "decode": {"logits": step, **cache}}
+        errs[arch] = lm_compare(out["cuda"], out["cpu"], LM_SMOKE_TOL, f"lm {arch} ")
+    props = {}
+    for arch, steps, tol in (("granite-3-2b", 16, 2e-3), ("rwkv6-3b", 8, 3e-3)):
+        cfg = dataclasses.replace(get_config(arch).smoke(), q_chunk=8)
+        params, _ = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                  device="cuda")
+        toks = torch.randint(0, cfg.vocab, (1, steps), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(2))
+        with torch.inference_mode():
+            full, _ = T.forward(cfg, params, {"tokens": toks})
+            cache = T.zeros_cache(cfg, 1, steps, device="cuda")
+            worst = 0.0
+            for t in range(steps):
+                lg, cache = T.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+                expect(torch.allclose(lg[0], full[0, t], rtol=tol, atol=tol),
+                       f"lm {arch}: decode step {t} differs from forward")
+                worst = max(worst, float((lg[0] - full[0, t]).abs().max()))
+        props[arch] = {"steps": steps, "tolerance": tol, "max_abs_err": worst}
+    emit("lm", part="smoke families, card against CPU", tolerance=LM_SMOKE_TOL,
+         max_abs_err=errs, decode_vs_forward=props, card=card)
+
+
+def lm_serve(eng, prompts, label: str, card: str, *, prof=False):
+    """Serve the launcher's workload through `eng`: every request completes
+    with LM_NEW tokens in [0, vocab) in LM_STEPS decode steps.  Returns the
+    tokens and what was measured: tokens/s over the wall, each step's wall
+    time (the decode call until the device has finished it), and where
+    `prof`, the device's busy share of the run from torch.profiler's
+    kernels (the profiler's own host cost lowers it)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Request
+
+    step_s, decode = [], eng.decode
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = decode(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    eng.decode = timed
+    reqs = [Request(uid=i, prompt=p.copy(), max_new_tokens=LM_NEW) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ctx = None
+    if prof:
+        ctx = device_trace()
+        trace = ctx.__enter__()
+    t0 = time.perf_counter()
+    done = eng.submit_and_run(reqs)
+    wall_s = time.perf_counter() - t0
+    busy = {}
+    if ctx is not None:
+        ctx.__exit__(None, None, None)
+        kern = [e for e in trace.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kern:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0) + e.time_range.elapsed_us()
+        device_us = sum(by_name.values())
+        # a window the profiler lost is "not measured", as in device_profile
+        busy = {"device_busy_ms": device_us / 1e3 if device_us else "not measured",
+                "device_busy_share": device_us / 1e6 / wall_s if device_us else "not measured",
+                "device_ops": len(kern),
+                "top_device_ops": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+    eng.decode = decode
+    vocab = eng.cfg.vocab
+    expect(all(r.done and len(r.out) == LM_NEW for r in done)
+           and all(0 <= t < vocab for r in done for t in r.out),
+           f"lm {label}: a request did not complete")
+    expect(len(step_s) == LM_STEPS, f"lm {label}: {len(step_s)} decode steps, not {LM_STEPS}")
+    tokens = [list(r.out) for r in done]
+    n = sum(map(len, tokens))
+    return tokens, {"engine": label, "requests": len(done), "tokens": n, "steps": len(step_s),
+                    "wall_s": wall_s, "tokens_per_s": n / wall_s,
+                    "step_ms_median": statistics.median(step_s) * 1e3,
+                    "step_ms_p90": sorted(step_s)[int(0.9 * len(step_s))] * 1e3, **busy}
+
+
+def lm_held_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for _, t in lm_leaves(params))
+
+
+def lm_full_width(card: str) -> None:
+    """granite-3-2b at its full config on the card, params drawn there
+    (seed 0): (a) two float32 decode steps at batch 2 on the card against
+    the same steps on the CPU from the same params, within LM_FULL_TOL;
+    (b) the reference launcher's workload (16 requests, 6-token prompts
+    from numpy seed 0, 8 new tokens, batch 4, max_len 64: 52 steps) served
+    in bfloat16, twice (the second under the profiler), the tokens equal,
+    and once in float32; (c) the same workload served straight from
+    `ptq.quantize_tree`'s int8 QuantTensors.  Times beside each engine's
+    bound, the weight bytes a step reads over the HBM rate."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import ptq
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Engine
+
+    expect(not torch.backends.cuda.matmul.allow_tf32, "lm: TF32 matmuls are on")
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _ = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in lm_leaves(params))
+    emit("lm", part="params", arch=LM_ARCH, n_params=n_params, init_s=init_s,
+         param_bytes=lm_held_bytes(params), card=card)
+    expect(abs(n_params - 2.534e9) < 1e7, f"lm: {n_params} params, not 2.534e9")
+
+    # (a) float32 at full width, the card against the CPU
+    cpu_params = lm_tree_to(params, "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 2)).astype(np.int32)
+    out = {}
+    with torch.inference_mode():
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            cache = T.zeros_cache(cfg32, 2, 8, device=dev)
+            steps = []
+            for pos in range(2):
+                lg, cache = T.decode_step(cfg32, p, cache, torch.from_numpy(
+                    toks[:, pos:pos + 1]).to(dev), pos)
+                steps.append(lg)
+            out[dev] = {"step0": steps[0], "step1": steps[1], **cache}
+    del cpu_params
+    err = lm_compare(out["cuda"], out["cpu"], LM_FULL_TOL, "lm full-width float32 ")
+    emit("lm", part="full-width float32 decode, card against CPU", steps=2, batch=2,
+         tolerance=LM_FULL_TOL, max_abs_err=err,
+         logit_scale=float(out["cpu"]["step1"].abs().max()), card=card)
+    del out
+
+    # (b) served in bfloat16, twice, and in float32
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    kw = dict(batch_size=LM_BATCH, max_len=LM_MAX_LEN, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, **kw)
+    held = lm_held_bytes(eng.params)
+    bf16, bf16_run = lm_serve(eng, prompts, "bfloat16", card)
+    peak = torch.cuda.max_memory_allocated()
+    again, again_run = lm_serve(Engine(cfg, eng.params, **kw), prompts,
+                                "bfloat16, a second engine, profiled", card, prof=True)
+    expect(again == bf16, "lm: a second bfloat16 engine on the same params gave other tokens")
+    del eng
+    f32, f32_run = lm_serve(Engine(cfg32, params, **kw), prompts, "float32", card)
+    agree = lambda a, b: float(np.mean([x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb)]))
+    bound = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3
+    f32_bytes = lm_held_bytes(params)
+    for run, nbytes in ((bf16_run, held), (again_run, held), (f32_run, f32_bytes)):
+        run.update(held_weight_bytes=nbytes, bound_ms=bound(nbytes),
+                   step_over_bound=run["step_ms_median"] / bound(nbytes))
+    emit("lm", part="served", runs=[bf16_run, again_run, f32_run],
+         bf16_tokens_equal_to_f32=agree(bf16, f32), peak_memory_bytes=peak,
+         # the bfloat16 step's bound were the float32 weights cast on every
+         # use: read 4 bytes, write 2, read 2 a parameter
+         bound_ms_cast_on_use=bound(f32_bytes * 2), card=card)
+
+    # (c) int8: straight from QuantTensor params, dequantized on use
+    qparams = ptq.quantize_tree(params)
+    errs = ptq.quantization_error(params, qparams)
+    expect(len(errs) == 8 and all(0 < e < 0.02 for e in errs.values()),
+           f"lm int8: quantization errors {errs}")
+    del params
+    int8, int8_run = lm_serve(Engine(cfg, qparams, **kw), prompts, "int8 QuantTensor", card)
+    q_bytes = lm_held_bytes(qparams)
+    int8_run.update(held_weight_bytes=q_bytes, bound_ms=bound(q_bytes),
+                    step_over_bound=int8_run["step_ms_median"] / bound(q_bytes))
+    emit("lm", part="int8", run=int8_run, tokens_equal_to_bf16=agree(int8, bf16),
+         quantization_error=errs, card=card)
+
+
+def phase_lm(card: str) -> None:
+    """The LM scaffold's serving path on the card: every family at smoke
+    width against the CPU, granite-3-2b at full width (float32 against the
+    CPU, served in bfloat16, float32 and int8), and the `serve` launcher.
+    The path runs no kernel of csrc/: its products are torch.matmul and
+    torch.einsum (the reference has no Pallas kernel there)."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import serve
+
+    reset_launches()
+    lm_smoke_families(card)
+    lm_full_width(card)
+    for argv in ([], ["--int8"]):
+        done = serve.main(argv)
+        expect(len(done) == 16 and all(r.done for r in done), f"lm: serve {argv}")
+    expect(launches() == {}, f"lm: csrc kernels launched on the LM path {launches()}")
+    torch.cuda.empty_cache()
+
+
 def phase_profile(params, images, card):
     """Where a served step's time goes.  First 16 synchronous engine steps
     without a profiler, the requests queued beforehand: their wall time per
@@ -2543,7 +2931,7 @@ def phase_profile(params, images, card):
     copy back, the Max Finder, the results and the histogram).  Then a
     torch.profiler trace of 16 more steps: device busy share and the device
     and host time by op (the profiler's own host cost lowers the share)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.serving.vision_engine import VisionEngine
 
     n_steps = 16
@@ -2562,7 +2950,7 @@ def phase_profile(params, images, card):
          served_per_wall_s=served / run_wall_s, card=card)
 
     eng.submit_many(batch)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         served = eng.run()
         wall_s = time.perf_counter() - t0
@@ -2598,7 +2986,7 @@ def phase_sweep_profile(card):
     time by kernel and the host time by op (the profiler's own host cost
     lowers the share)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.serving.vision_engine import VisionEngine
     from repro_torch.streaming import FcnSweep, StreamingPipeline, SyntheticVideoSource
 
@@ -2615,7 +3003,7 @@ def phase_sweep_profile(card):
     for fb in batches:
         sweep.score(eng.params, fb, backend=eng.backend, device="cuda")
     score_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         pipe.run()
         wall_s = time.perf_counter() - t0
@@ -2804,6 +3192,7 @@ def run(card: str, kind: str, count: int) -> None:
     runs += phase_router(card, trained_np, q16_wall_qps)
     runs += phase_sweep(card)
     runs += phase_disagg(card)
+    phase_lm(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)
     for name, row in table.items():

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import re
+import time
 from typing import Any, Callable, Iterable
 
 # `__global__` function in csrc/*.cu -> the wrapper's launch-count name
@@ -37,6 +38,11 @@ KERNEL_LAUNCHES: dict[str, str] = {
     "qmm_dp4a_kernel": "quant_matmul",
     "qmm_wgmma_kernel": "quant_matmul",
 }
+# host idle at each end of `count_launches`' profiled window: on the H100
+# the profiler lost all the device activity of 21 in 3,092 windows of three
+# short launches without it, and of none of 3,092 with 5 or 20 ms
+# (`analysis/profiler_windows.py`)
+WINDOW_PAD_S = 0.02
 # kernels a wrapper launches besides its counted one, not counted:
 # `quant_matmul`'s wgmma route transposes `wq` with a kernel of its own first
 HELPER_KERNELS = frozenset({"qmm_transpose_kernel"})
@@ -69,11 +75,17 @@ def kernel_counts(event_names: Iterable[str]) -> dict[str, int]:
         if base in KERNEL_LAUNCHES))
 
 
+class LostWindow(RuntimeError):
+    """The profiler recorded no device activity over a call in which the
+    wrappers launched kernels: the measurement was lost, not the launches."""
+
+
 def count_launches(fn: Callable, *args: Any, **kwargs: Any) -> dict[str, int]:
     """Per launch-count name, the port's kernels the card ran during one
     call of `fn(*args, **kwargs)`, counted by the profiler.  Raises if that
     count differs from the wrappers' `LAUNCHES` over the same call (so no
-    other thread may launch the port's kernels meanwhile)."""
+    other thread may launch the port's kernels meanwhile); `LostWindow`
+    where the profiler saw no device activity at all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -82,13 +94,18 @@ def count_launches(fn: Callable, *args: Any, **kwargs: Any) -> dict[str, int]:
     before = _launch.launches()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)
         fn(*args, **kwargs)
         torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
     after = _launch.launches()
     counted = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     seen = kernel_counts(names)
+    if counted and not names:
+        raise LostWindow(f"the profiler saw no device activity over a call that "
+                         f"launched {counted}")
     if seen != counted:
         raise RuntimeError(
             f"kernel launches seen by the profiler {seen} differ from the "

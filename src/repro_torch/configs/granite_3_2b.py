@@ -1,0 +1,11 @@
+"""granite-3-2b [dense] — GQA [hf:ibm-granite/granite-3.0-2b-base; hf]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-2b", family="dense",
+    n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab=49155, head_dim=64,
+    rope_theta=10000.0, norm="rmsnorm", mlp="gated", tie_embeddings=True,
+    micro_batch=128,
+    source="hf:ibm-granite/granite-3.0-2b-base",
+)

@@ -1,4 +1,4 @@
-"""Carry smallNet parameters from the JAX package into the port.
+"""Carry parameters from the JAX package into the port.
 
 `params_from_jax(tree, device)` takes the reference's params as arrays
 (numpy, anything `np.asarray` accepts, or torch tensors on any device) —
@@ -8,6 +8,10 @@ and `.scale`, without importing the reference) — and returns the port's
 dict of tensors (and `ptq.QuantTensor`s).  The layouts stay: conv
 weights (2,2,1,1) HWIO and biases (1,), dense (49,10) and (10,), so both
 packages compute the same thing from the same numbers.
+
+`lm_params_from_jax(tree, device)` carries an LM's params (the nested
+dicts of `repro.models.transformer.init_params`, float or quantized by
+`repro.core.ptq.quantize_tree`) leaf for leaf, each in its own dtype.
 """
 from __future__ import annotations
 
@@ -68,3 +72,34 @@ def params_from_jax(tree: dict, device: torch.device | str | None = None) -> dic
                                 f"got {a.dtype}")
             out[layer][leaf] = torch.tensor(a, device=dev)
     return out
+
+
+def _lm_leaf(path: str, a, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    a = np.array(a)               # a writable copy, whatever held it
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    if a.dtype.kind not in "fiu":
+        raise TypeError(f"{path}: expected a float or integer array, got {a.dtype}")
+    return torch.from_numpy(a).to(dev)
+
+
+def lm_params_from_jax(tree, device: torch.device | str | None = None):
+    """The reference's LM params (a nest of dicts whose leaves are arrays:
+    numpy, anything `np.asarray` accepts, or tensors) as the port's tree of
+    tensors on `device`, each leaf in its own dtype; a leaf with `.q` and
+    `.scale` (the reference's `ptq.QuantTensor`) becomes the port's."""
+    dev = resolve_device(device)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}[{k!r}]") for k, v in node.items()}
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return ptq.QuantTensor(_lm_leaf(path + ".q", node.q, dev),
+                                   _lm_leaf(path + ".scale", node.scale, dev))
+        if isinstance(node, (str, bytes)) or node is None:
+            raise TypeError(f"{path}: expected an array leaf, got {type(node).__name__}")
+        return _lm_leaf(path, node, dev)
+    return walk(tree, "")

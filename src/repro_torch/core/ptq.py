@@ -15,8 +15,9 @@ Parameter trees are nests of dicts, lists and tuples.  The reference's
 `QuantTensor` is a registered pytree node and its predicate reads the
 leaf's path as `jax.tree_util.keystr` prints it ("['dense']['w']"); the
 port builds the same path text, so "blocks", "norm" and "pos" select the
-same leaves.  `quantize_axes` and `abstract_quantize_tree` serve the LM
-scaffold's mesh and dry run and come with it.
+same leaves.  `quantize_axes` keeps an LM's logical-axes tree in step
+with `quantize_tree`, and `abstract_quantize_tree` is `quantize_tree` over
+meta tensors: shapes and dtypes, no memory.
 """
 from __future__ import annotations
 
@@ -146,6 +147,37 @@ def quantize_tree(params: Any, cfg: QuantConfig = QuantConfig(),
         scale = _calib_scale(leaf.to(torch.float32), cfg, axis)
         return QuantTensor(_round_clip(leaf, scale, cfg), scale)
     return _map_with_path(one, params)
+
+
+def quantize_axes(params: Any, axes: Any,
+                  predicate: Callable[[str, torch.Tensor], bool] | None = None) -> Any:
+    """Transform a logical-axes tree (tuples of names, one per param leaf)
+    in lockstep with quantize_tree: a weight leaf's axes tuple becomes
+    `QuantTensor(axes, scale_axes)`, the scale's axes (None,...,last), with
+    the stacked-layer leading axis kept for rank>=3 leaves."""
+    predicate = _default_predicate if predicate is None else predicate
+
+    def walk(p, a, path):
+        if isinstance(p, dict):
+            return {k: walk(p[k], a[k], f"{path}[{k!r}]") for k in p}
+        if not predicate(path, p):
+            return a
+        if p.ndim >= 3:
+            sax = (a[0],) + (None,) * (len(a) - 2) + (a[-1],)
+        else:
+            sax = (None,) * (len(a) - 1) + (a[-1],)
+        return QuantTensor(a, sax)
+    return walk(params, axes, "")
+
+
+def abstract_quantize_tree(params_abs: Any, cfg: QuantConfig = QuantConfig()) -> Any:
+    """quantize_tree over meta tensors (`models.model.abstract_params`):
+    the quantized tree's shapes and dtypes, with no memory allocated."""
+    leaves = []
+    _map_with_path(lambda _, x: leaves.append(x), params_abs)
+    if not all(isinstance(x, torch.Tensor) and x.is_meta for x in leaves):
+        raise ValueError("abstract_quantize_tree takes meta tensors only")
+    return quantize_tree(params_abs, cfg)
 
 
 def dequantize_tree(qparams: Any) -> Any:

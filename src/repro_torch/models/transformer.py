@@ -1,0 +1,480 @@
+"""Architecture assembly: decoder stacks, hybrid interleave, enc-dec, VLM.
+
+Port of `repro.models.transformer`.  Params keep the reference's tree:
+block leaves stacked on a leading layer axis, so `core/ptq.quantize_tree`
+picks the same leaves and gives per-(layer, channel) scales.  The layer
+loop is a Python `for` over that axis (`layer` indexes every leaf, a
+`QuantTensor`'s words and scales too).
+
+Entry points (all functions of (cfg, params, ...)):
+    init_params(cfg, generator, device=)       -> (params, axes)
+    forward(cfg, params, batch)                -> (logits, aux)   [train/prefill math]
+    loss_fn(cfg, params, batch)                -> (loss, {"ce", "aux"})
+    prefill(cfg, params, batch)                -> (last_logits, cache)
+    decode_step(cfg, params, cache, token, pos) -> (logits, cache)   [cache updated in place]
+    init_cache_shape(cfg, batch, max_len)      -> dict of meta tensors
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.ptq import QuantTensor
+from repro_torch.models import attention as attn
+from repro_torch.models import layers, mamba, moe, rwkv6
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_dense_block(draw, cfg, lead):
+    pa, aa = attn.init_attention(draw, cfg, lead)
+    n1, an1 = layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype, lead)
+    n2, an2 = layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype, lead)
+    if cfg.family == "moe":
+        pm, am = moe.init_moe(draw, cfg, lead)
+    else:
+        pm, am = layers.init_mlp(draw, cfg.d_model, cfg.d_ff, cfg.mlp, cfg.param_dtype, lead)
+    return ({"attn": pa, "mlp": pm, "norm1": n1, "norm2": n2},
+            {"attn": aa, "mlp": am, "norm1": an1, "norm2": an2})
+
+
+def _init_rwkv_layer(draw, cfg, lead):
+    p, a = rwkv6.init_rwkv_block(draw, cfg, lead)
+    n1, an1 = layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype, lead)
+    n2, an2 = layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype, lead)
+    return ({"rwkv": p, "norm1": n1, "norm2": n2},
+            {"rwkv": a, "norm1": an1, "norm2": an2})
+
+
+def _init_jamba_superblock(draw, cfg, lead):
+    """P sublayers: mamba at all slots except attn_offset; MoE every moe_every-th."""
+    P = cfg.attn_period
+    n_moe = P // cfg.moe_every
+    pm, am = mamba.init_mamba_block(draw, cfg, lead + (P - 1,))
+    pa, aa = attn.init_attention(draw, cfg, lead)
+    pmoe, amoe = moe.init_moe(draw, cfg, lead + (n_moe,))
+    pmlp, amlp = layers.init_mlp(draw, cfg.d_model, cfg.d_ff, cfg.mlp, cfg.param_dtype,
+                                 lead + (P - n_moe,))
+    pn, an = layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype, lead + (2 * P,))
+    return ({"mamba": pm, "attn": pa, "moe": pmoe, "mlp": pmlp, "norms": pn},
+            {"mamba": am, "attn": aa, "moe": amoe, "mlp": amlp, "norms": an})
+
+
+def _init_whisper_dec_block(draw, cfg, lead):
+    psa, asa = attn.init_attention(draw, cfg, lead)
+    pca, aca = attn.init_attention(draw, cfg, lead)
+    pm, am = layers.init_mlp(draw, cfg.d_model, cfg.d_ff, cfg.mlp, cfg.param_dtype, lead)
+    norms = [layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype, lead)
+             for _ in range(3)]
+    return ({"self": psa, "cross": pca, "mlp": pm,
+             "norm1": norms[0][0], "norm2": norms[1][0], "norm3": norms[2][0]},
+            {"self": asa, "cross": aca, "mlp": am,
+             "norm1": norms[0][1], "norm2": norms[1][1], "norm3": norms[2][1]})
+
+
+def init_params(cfg, generator: torch.Generator | None = None, *,
+                device: torch.device | str | None = None) -> tuple[dict, dict]:
+    """The port's own draw, with the reference's shapes, dtypes and stds
+    (torch cannot reproduce `jax.random`).  `generator` defaults to one
+    seeded 0 on `device`; on the meta device nothing is allocated."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    if generator is None and dev.type != "meta":
+        generator = torch.Generator(device=dev).manual_seed(0)
+    draw = layers.Draw(generator, dev)
+    pe, ae = layers.init_embed(draw, cfg.vocab_padded, cfg.d_model, cfg.param_dtype)
+    nf, anf = layers.init_norm(draw, cfg.d_model, cfg.norm, cfg.param_dtype)
+    params: dict = {"embed": pe, "final_norm": nf}
+    axes: dict = {"embed": ae, "final_norm": anf}
+    if not cfg.tie_embeddings:
+        params["lm_head"], axes["lm_head"] = layers.init_linear(
+            draw, cfg.d_model, cfg.vocab_padded, cfg.param_dtype, out_axis="vocab")
+
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        params["blocks"], axes["blocks"] = _init_dense_block(draw, cfg, (cfg.n_layers,))
+    elif fam == "ssm":
+        params["blocks"], axes["blocks"] = _init_rwkv_layer(draw, cfg, (cfg.n_layers,))
+    elif fam == "hybrid":
+        params["blocks"], axes["blocks"] = _init_jamba_superblock(
+            draw, cfg, (cfg.n_layers // cfg.attn_period,))
+    elif fam == "audio":
+        params["enc_blocks"], axes["enc_blocks"] = _init_dense_block(
+            draw, cfg, (cfg.encoder_layers,))
+        params["blocks"], axes["blocks"] = _init_whisper_dec_block(draw, cfg, (cfg.n_layers,))
+        params["enc_pos"] = draw.normal((cfg.encoder_frames, cfg.d_model), 0.02,
+                                        cfg.param_dtype)
+        params["dec_pos"] = draw.normal((32768, cfg.d_model), 0.02, cfg.param_dtype)
+        axes["enc_pos"] = (None, None)
+        axes["dec_pos"] = (None, None)
+        params["enc_final_norm"], axes["enc_final_norm"] = layers.init_norm(
+            draw, cfg.d_model, cfg.norm, cfg.param_dtype)
+    if fam == "vlm":
+        params["vision_proj"], axes["vision_proj"] = layers.init_linear(
+            draw, cfg.vit_dim, cfg.d_model, cfg.param_dtype, in_axis=None, out_axis="fsdp")
+    return params, axes
+
+
+# ---------------------------------------------------------------------------
+# stacked leaves
+# ---------------------------------------------------------------------------
+
+def layer(tree, i: int):
+    """Layer `i` of a stacked tree: every leaf indexed on its leading axis,
+    a `QuantTensor`'s words and its per-(layer, channel) scales alike."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantTensor):
+        return QuantTensor(tree.q[i], tree.scale[i])
+    return tree[i]
+
+
+def n_stacked(tree) -> int:
+    """The length of a stacked tree's leading (layer) axis."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return (tree.q if isinstance(tree, QuantTensor) else tree).shape[0]
+
+
+# ---------------------------------------------------------------------------
+# block bodies
+# ---------------------------------------------------------------------------
+
+def _dense_body(cfg, x, blk, positions, *, causal=True):
+    h = x + attn.attention_block(
+        layers.apply_norm(x, blk["norm1"], cfg.norm), blk["attn"], cfg,
+        positions, causal=causal)
+    hn = layers.apply_norm(h, blk["norm2"], cfg.norm)
+    if cfg.family == "moe":
+        y, aux = moe.moe_mlp(hn, blk["mlp"], cfg)
+    else:
+        y, aux = layers.mlp(hn, blk["mlp"], cfg.mlp, cfg.dtype), 0.0
+    return h + y, aux
+
+
+def _rwkv_body(cfg, x, blk):
+    y, _ = rwkv6.time_mix(layers.apply_norm(x, blk["norm1"], cfg.norm), blk["rwkv"], cfg)
+    h = x + y
+    y, _ = rwkv6.channel_mix(layers.apply_norm(h, blk["norm2"], cfg.norm), blk["rwkv"], cfg)
+    return h + y, 0.0
+
+
+def _dense_mlp_index(cfg, s: int) -> int:
+    """Index into the dense-mlp stack for sublayer s (non-MoE slots)."""
+    return sum(1 for t in range(s) if t % cfg.moe_every != cfg.moe_every - 1)
+
+
+def _jamba_mlp(cfg, x, blk, s: int, group_size: int = 512):
+    """Sublayer s's MLP: MoE on every moe_every-th slot, else dense."""
+    if s % cfg.moe_every == cfg.moe_every - 1:
+        return moe.moe_mlp(x, layer(blk["moe"], s // cfg.moe_every), cfg,
+                           group_size=group_size)
+    return layers.mlp(x, layer(blk["mlp"], _dense_mlp_index(cfg, s)), cfg.mlp, cfg.dtype), 0.0
+
+
+def _jamba_body(cfg, x, blk, positions):
+    aux_total = 0.0
+    mi = 0          # mamba sublayer index
+    for s in range(cfg.attn_period):
+        xn = layers.apply_norm(x, layer(blk["norms"], 2 * s), cfg.norm)
+        if s == cfg.attn_offset:
+            y = attn.attention_block(xn, blk["attn"], cfg, positions, causal=True)
+        else:
+            y, _ = mamba.mamba_block(xn, layer(blk["mamba"], mi), cfg)
+            mi += 1
+        x = x + y
+        y, aux = _jamba_mlp(cfg, layers.apply_norm(x, layer(blk["norms"], 2 * s + 1), cfg.norm),
+                            blk, s)
+        aux_total = aux_total + aux
+        x = x + y
+    return x, aux_total
+
+
+def _whisper_dec_body(cfg, x, blk, positions, enc_k, enc_v):
+    h = x + attn.attention_block(
+        layers.apply_norm(x, blk["norm1"], cfg.norm), blk["self"], cfg,
+        positions, causal=True)
+    h = h + attn.cross_attention_block(
+        layers.apply_norm(h, blk["norm2"], cfg.norm), blk["cross"], cfg, enc_k, enc_v)
+    h = h + layers.mlp(layers.apply_norm(h, blk["norm3"], cfg.norm),
+                       blk["mlp"], cfg.mlp, cfg.dtype)
+    return h, 0.0
+
+
+def _scan_blocks(x, stacked, body):
+    """x through the stacked blocks in order; body(x, blk) -> (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_stacked(stacked)):
+        x, a = body(x, layer(stacked, i))
+        aux = aux + a
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill math)
+# ---------------------------------------------------------------------------
+
+def _encode_audio(cfg, params, frames):
+    """frames (B, F, d_model) — precomputed by the stub conv frontend."""
+    x = frames.to(cfg.dtype) + params["enc_pos"][None, :frames.shape[1]].to(cfg.dtype)
+    positions = torch.arange(frames.shape[1], device=x.device)
+    x, _ = _scan_blocks(x, params["enc_blocks"],
+                        lambda x, blk: _dense_body(cfg, x, blk, positions, causal=False))
+    return layers.apply_norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def _logits(cfg, params, x):
+    if cfg.tie_embeddings:
+        w = layers._materialize(params["embed"]["w"], cfg.dtype)
+        logits = torch.einsum("bsd,vd->bsv", x, w)
+    else:
+        logits = layers.linear(x, params["lm_head"], cfg.dtype)
+    return logits.float()
+
+
+def _vision_prefix(cfg, params, batch, x):
+    v = layers.linear(batch["vision"].to(cfg.dtype), params["vision_proj"], cfg.dtype)
+    return torch.cat([v, x[:, cfg.vision_tokens:]], dim=1)
+
+
+def forward(cfg, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """batch: {"tokens": (B,S) int, optional "frames"/"vision"} ->
+    (logits (B,S,vocab_padded) f32, aux)."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = layers.embed(tokens, params["embed"], cfg.dtype)
+    positions = torch.arange(S, device=x.device)
+    fam = cfg.family
+
+    if fam == "vlm":
+        x = _vision_prefix(cfg, params, batch, x)
+    if fam == "audio":
+        x = x + params["dec_pos"][None, :S].to(cfg.dtype)
+        enc_out = _encode_audio(cfg, params, batch["frames"])
+
+        def body(x, blk):
+            ek, ev = attn.encoder_kv(enc_out, blk["cross"], cfg)
+            return _whisper_dec_body(cfg, x, blk, positions, ek, ev)
+        x, aux = _scan_blocks(x, params["blocks"], body)
+    elif fam in ("dense", "moe", "vlm"):
+        x, aux = _scan_blocks(x, params["blocks"],
+                              lambda x, blk: _dense_body(cfg, x, blk, positions))
+    elif fam == "ssm":
+        x, aux = _scan_blocks(x, params["blocks"], lambda x, blk: _rwkv_body(cfg, x, blk))
+    elif fam == "hybrid":
+        x, aux = _scan_blocks(x, params["blocks"],
+                              lambda x, blk: _jamba_body(cfg, x, blk, positions))
+    else:
+        raise ValueError(fam)
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (labels = batch['labels'])."""
+    logits, aux = forward(cfg, params, batch)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    ce = torch.mean(lse - gold)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with caches
+# ---------------------------------------------------------------------------
+
+def init_cache_shape(cfg, batch: int, max_len: int) -> dict:
+    """The decode cache as meta tensors (shapes and dtypes, no memory)."""
+    fam = cfg.family
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    kv = lambda L: {"k": meta((L, batch, max_len, K, hd), cfg.dtype),
+                    "v": meta((L, batch, max_len, K, hd), cfg.dtype)}
+    if fam in ("dense", "moe", "vlm"):
+        return kv(cfg.n_layers)
+    if fam == "ssm":
+        return {k: meta((cfg.n_layers,) + v.shape, v.dtype)
+                for k, v in rwkv6.rwkv_state_shape(batch, cfg).items()}
+    if fam == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_period
+        out = kv(n_super)
+        for k, v in mamba.mamba_state_shape(batch, cfg).items():
+            out["mamba_" + k] = meta((n_super, cfg.attn_period - 1) + v.shape, v.dtype)
+        return out
+    if fam == "audio":
+        out = kv(cfg.n_layers)
+        for k in ("cross_k", "cross_v"):
+            out[k] = meta((cfg.n_layers, batch, cfg.encoder_frames, K, hd), cfg.dtype)
+        return out
+    raise ValueError(fam)
+
+
+def zeros_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
+    dev = resolve_device(device)
+    return {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+            for k, v in init_cache_shape(cfg, batch, max_len).items()}
+
+
+def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos):
+    """token (B,1) int; pos the current position (an int or a 0-d tensor).
+    Returns (logits (B, vocab_padded) f32, cache): the cache's tensors are
+    updated in place (the reference donates its cache to the step)."""
+    B = token.shape[0]
+    pos = int(pos)
+    x = layers.embed(token, params["embed"], cfg.dtype)   # (B,1,d)
+    fam = cfg.family
+
+    if fam in ("dense", "moe", "vlm", "audio"):
+        if fam == "audio":
+            x = x + params["dec_pos"][None, pos].to(cfg.dtype)
+        key_self = "self" if fam == "audio" else "attn"
+        for i in range(n_stacked(params["blocks"])):
+            blk = layer(params["blocks"], i)
+            xn = layers.apply_norm(x, blk["norm1"], cfg.norm)
+            y, _ = attn.decode_attention_block(xn, blk[key_self], cfg,
+                                               attn.KVCache(cache["k"][i], cache["v"][i]), pos)
+            x = x + y
+            if fam == "audio":
+                x = x + attn.cross_attention_block(
+                    layers.apply_norm(x, blk["norm2"], cfg.norm), blk["cross"], cfg,
+                    cache["cross_k"][i], cache["cross_v"][i])
+                xn = layers.apply_norm(x, blk["norm3"], cfg.norm)
+                x = x + layers.mlp(xn, blk["mlp"], cfg.mlp, cfg.dtype)
+            else:
+                xn = layers.apply_norm(x, blk["norm2"], cfg.norm)
+                if fam == "moe":
+                    y, _ = moe.moe_mlp(xn, blk["mlp"], cfg, group_size=B)
+                else:
+                    y = layers.mlp(xn, blk["mlp"], cfg.mlp, cfg.dtype)
+                x = x + y
+    elif fam == "ssm":
+        for i in range(n_stacked(params["blocks"])):
+            blk = layer(params["blocks"], i)
+            y, (xtm, wkv) = rwkv6.time_mix(
+                layers.apply_norm(x, blk["norm1"], cfg.norm), blk["rwkv"], cfg,
+                xprev_last=cache["x_tm"][i], state=cache["wkv"][i])
+            x = x + y
+            y, xcm = rwkv6.channel_mix(
+                layers.apply_norm(x, blk["norm2"], cfg.norm), blk["rwkv"], cfg,
+                xprev_last=cache["x_cm"][i])
+            x = x + y
+            cache["wkv"][i].copy_(wkv)
+            cache["x_tm"][i].copy_(xtm)
+            cache["x_cm"][i].copy_(xcm)
+    elif fam == "hybrid":
+        for i in range(n_stacked(params["blocks"])):
+            blk = layer(params["blocks"], i)
+            mi = 0
+            for s in range(cfg.attn_period):
+                xn = layers.apply_norm(x, layer(blk["norms"], 2 * s), cfg.norm)
+                if s == cfg.attn_offset:
+                    y, _ = attn.decode_attention_block(
+                        xn, blk["attn"], cfg, attn.KVCache(cache["k"][i], cache["v"][i]), pos)
+                else:
+                    conv, ssm = cache["mamba_conv"][i, mi], cache["mamba_ssm"][i, mi]
+                    y, nst = mamba.mamba_block(xn, layer(blk["mamba"], mi), cfg,
+                                               state={"conv": conv, "ssm": ssm})
+                    conv.copy_(nst["conv"])
+                    ssm.copy_(nst["ssm"])
+                    mi += 1
+                x = x + y
+                y, _ = _jamba_mlp(cfg, layers.apply_norm(x, layer(blk["norms"], 2 * s + 1),
+                                                         cfg.norm), blk, s, group_size=B)
+                x = x + y
+    else:
+        raise ValueError(fam)
+
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    return _logits(cfg, params, x)[:, 0], dict(cache)
+
+
+def prefill(cfg, params, batch: dict):
+    """Single-pass prompt processing: forward math + decode-cache
+    materialization in the same layer loop.  Returns
+    (last-position logits (B, vocab_padded), cache)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    fam = cfg.family
+    x = layers.embed(tokens, params["embed"], cfg.dtype)
+    positions = torch.arange(S, device=x.device)
+    q_chunk = min(cfg.q_chunk, S)
+
+    def self_attention(x, p):
+        """The attention sublayer, also returning its K/V for the cache."""
+        q, k, v = attn._qkv(x, p, cfg, positions)
+        o = attn.causal_attention(q, k, v, q_chunk=q_chunk)
+        return layers.linear(o.reshape(B, S, -1), p["wo"], cfg.dtype), \
+            k.to(cfg.dtype), v.to(cfg.dtype)
+
+    stacked = params["blocks"]
+    outs: dict[str, list] = {}
+
+    def keep(**leaves):
+        for k, v in leaves.items():
+            outs.setdefault(k, []).append(v)
+
+    if fam in ("dense", "moe", "vlm"):
+        if fam == "vlm":
+            x = _vision_prefix(cfg, params, batch, x)
+        for i in range(n_stacked(stacked)):
+            blk = layer(stacked, i)
+            o, k, v = self_attention(layers.apply_norm(x, blk["norm1"], cfg.norm), blk["attn"])
+            h = x + o
+            hn = layers.apply_norm(h, blk["norm2"], cfg.norm)
+            if fam == "moe":
+                y, _ = moe.moe_mlp(hn, blk["mlp"], cfg)
+            else:
+                y = layers.mlp(hn, blk["mlp"], cfg.mlp, cfg.dtype)
+            x = h + y
+            keep(k=k, v=v)
+    elif fam == "ssm":
+        for i in range(n_stacked(stacked)):
+            blk = layer(stacked, i)
+            y, (xtm, wkv) = rwkv6.time_mix(
+                layers.apply_norm(x, blk["norm1"], cfg.norm), blk["rwkv"], cfg)
+            h = x + y
+            y, xcm = rwkv6.channel_mix(
+                layers.apply_norm(h, blk["norm2"], cfg.norm), blk["rwkv"], cfg)
+            x = h + y
+            keep(wkv=wkv.float(), x_tm=xtm.to(cfg.dtype), x_cm=xcm.to(cfg.dtype))
+    elif fam == "hybrid":
+        for i in range(n_stacked(stacked)):
+            blk = layer(stacked, i)
+            mi = 0
+            convs, ssms = [], []
+            for s in range(cfg.attn_period):
+                xn = layers.apply_norm(x, layer(blk["norms"], 2 * s), cfg.norm)
+                if s == cfg.attn_offset:
+                    y, k, v = self_attention(xn, blk["attn"])
+                    keep(k=k, v=v)
+                else:
+                    y, nst = mamba.mamba_block(xn, layer(blk["mamba"], mi), cfg)
+                    convs.append(nst["conv"])
+                    ssms.append(nst["ssm"])
+                    mi += 1
+                x = x + y
+                y, _ = _jamba_mlp(cfg, layers.apply_norm(x, layer(blk["norms"], 2 * s + 1),
+                                                         cfg.norm), blk, s)
+                x = x + y
+            keep(mamba_conv=torch.stack(convs).to(cfg.dtype), mamba_ssm=torch.stack(ssms))
+    elif fam == "audio":
+        x = x + params["dec_pos"][None, :S].to(cfg.dtype)
+        enc_out = _encode_audio(cfg, params, batch["frames"])
+        for i in range(n_stacked(stacked)):
+            blk = layer(stacked, i)
+            ek, ev = attn.encoder_kv(enc_out, blk["cross"], cfg)
+            o, k, v = self_attention(layers.apply_norm(x, blk["norm1"], cfg.norm), blk["self"])
+            h = x + o
+            h = h + attn.cross_attention_block(
+                layers.apply_norm(h, blk["norm2"], cfg.norm), blk["cross"], cfg, ek, ev)
+            x = h + layers.mlp(layers.apply_norm(h, blk["norm3"], cfg.norm),
+                               blk["mlp"], cfg.mlp, cfg.dtype)
+            keep(k=k, v=v, cross_k=ek.to(cfg.dtype), cross_v=ev.to(cfg.dtype))
+    else:
+        raise ValueError(fam)
+
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = _logits(cfg, params, x[:, -1:])
+    return logits[:, -1], {k: torch.stack(v) for k, v in outs.items()}

@@ -295,6 +295,54 @@ def test_kernel_names_from_demangled_and_mangled_events():
     assert L.kernel_counts([]) == {}
 
 
+class _FakeEvent:
+    def __init__(self, name):
+        self.name, self.device_type = name, torch.autograd.DeviceType.CUDA
+
+
+@pytest.mark.parametrize("events, want", [
+    (["void frame_trunk_kernel<(FixedRound)1, 16, 32>(int const*, int*, int)",
+      "Memcpy HtoD (Pageable -> Device)"], {"frame_trunk": 1}),
+    (["Memcpy HtoD (Pageable -> Device)"], RuntimeError),
+    ([], L.LostWindow),
+])
+def test_count_launches_against_the_profilers_events(monkeypatch, events, want):
+    """count_launches over a call that launches one frame_trunk, with the
+    profiler's device events faked: the same count is returned, another
+    raises, and a window with no device activity raises LostWindow."""
+    import collections
+    import contextlib
+
+    import torch.profiler as tp
+    from repro_torch.kernels import _launch
+
+    @contextlib.contextmanager
+    def fake_profile(activities):
+        yield type("Prof", (), {"events": lambda self: [_FakeEvent(n) for n in events]})()
+    monkeypatch.setattr(tp, "profile", fake_profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(L, "WINDOW_PAD_S", 0.0)
+    monkeypatch.setattr(_launch, "LAUNCHES", collections.Counter())
+    call = lambda: _launch.count_launch("frame_trunk")
+    if isinstance(want, dict):
+        assert L.count_launches(call) == want
+    else:
+        with pytest.raises(want) as e:
+            L.count_launches(call)
+        assert (e.type is L.LostWindow) == (want is L.LostWindow)
+
+
+def test_profiler_windows_needs_the_card():
+    """The window probe reads the card's activity: the CPU is refused, and
+    the default device raises where there is no card."""
+    from repro_torch.analysis import profiler_windows as PW
+    with pytest.raises(ValueError, match="has none"):
+        PW.main(["--device", "cpu", "--seconds", "0"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            PW.main(["--seconds", "0"])
+
+
 def test_the_table_covers_every_kernel_and_wrapper():
     sources = "".join(p.read_text() for p in CSRC.glob("*.cu"))
     kernels = set(re.findall(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s+)?"
