@@ -7,6 +7,7 @@ in `csrc/` with their plain PyTorch versions), `optim/`, `serving/` (the
 engine, the replica router and the disaggregated trunk/head server),
 `streaming/`, `obs/`, `analysis/` (the device database, the workload
 model, kernel launches read by the profiler), `data/`; and the LM
-scaffold's serving path: `configs/`, `models/`, `serving/engine.py`,
-`launch/serve.py`.
+scaffold: `configs/`, `models/`, `serving/engine.py`, `launch/serve.py`
+(serving), `data/lm_data.py`, `checkpoint/`, `runtime/`,
+`launch/train.py` (training).
 """

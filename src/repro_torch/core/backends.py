@@ -97,7 +97,8 @@ from repro_torch.kernels.sigmoid_pla.ops import sigmoid_pla
 
 
 def tree_map(fn, tree, is_leaf: Callable | None = None):
-    """Apply `fn` to every leaf of a nest of dicts, lists and tuples.  A
+    """Apply `fn` to every leaf of a nest of dicts, lists, tuples and
+    NamedTuples (such as `optim.AdamState`), each rebuilt as its type.  A
     `ptq.QuantTensor` is a node, mapped field by field (`q`, then `scale`),
     as the reference's registered pytree node is, unless `is_leaf` says it
     is a leaf."""
@@ -105,10 +106,12 @@ def tree_map(fn, tree, is_leaf: Callable | None = None):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     if isinstance(tree, ptq.QuantTensor):
         return ptq.QuantTensor(fn(tree.q), fn(tree.scale))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):        # a NamedTuple
+        return type(tree)(*(tree_map(fn, v, is_leaf) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     return fn(tree)
 
 

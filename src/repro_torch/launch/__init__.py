@@ -1,1 +1,1 @@
-"""Launchers (port of `repro.launch`): `serve`."""
+"""Launchers (port of `repro.launch`): `serve`, `train`."""

@@ -8,8 +8,12 @@ name tuples, as the reference's.  An init draws its leaves with a leading
 
 The numerics keep the reference's float32 islands: norms in float32,
 RoPE on split halves in float32, GELU as `jax.nn.gelu`'s default tanh
-approximation.  The sharding annotations of the reference (`constrain`)
-are no-ops on one device and are left out.
+approximation, and in bfloat16 the reference's default compilation: the
+activations rounded op by op as XLA lowers them (`silu`, `gelu`,
+`sigmoid`, `softplus`), and a norm reading its residual sum unrounded
+(`add_norm`).  The sharding
+annotations of the reference (`constrain`) are no-ops on one device and
+are left out.
 """
 from __future__ import annotations
 
@@ -74,6 +78,15 @@ def apply_norm(x, p, kind: str):
     if kind == "rmsnorm":
         return rmsnorm(x, p["w"])
     return layernorm(x, p["w"], p["b"])
+
+
+def add_norm(x: torch.Tensor, y: torch.Tensor, p, kind: str):
+    """The residual sum `x + y` in x's dtype, and its norm as the
+    reference's default compilation computes it: there XLA drops the
+    bfloat16 rounding of a sum that a norm upcasts at once (excess precision
+    allowed), so the norm reads the float32 sum.  The same in float32."""
+    s = x.float() + y.float()
+    return s.to(x.dtype), apply_norm(s, p, kind).to(x.dtype)
 
 
 def init_norm(draw: Draw, d: int, kind: str, dtype, lead: tuple = ()) -> tuple[dict, dict]:
@@ -150,14 +163,119 @@ def init_mlp(draw: Draw, d: int, d_ff: int, kind: str, dtype,
     return ({"wi": wi, "wo": wo}, {"wi": ai, "wo": ao})
 
 
+# --- activations ------------------------------------------------------------
+#
+# In bfloat16, XLA lowers each of `jax.nn`'s activations as a chain of
+# elementwise ops and rounds to bfloat16 after every one (read from the
+# compiled CPU HLO).  A torch op on bfloat16 tensors computes in float32 and
+# rounds once, so each chain below is written op by op on bfloat16 tensors,
+# with the reference's constants rounded to bfloat16 as its lowering has
+# them.  The backward passes are JAX's derivative rules, op by op in the
+# order its transposition accumulates them: `logistic` ans * (1 - ans),
+# `tanh` (g + g * ans) * (1 - ans), `integer_pow` 3 * x^2, and
+# `logaddexp`'s custom rule g * exp(x - out).  Other dtypes take the fused
+# torch op, as before.
+
+_GELU_C = float(torch.tensor(0.044715, dtype=torch.bfloat16))         # 0.0446777...
+_GELU_K = float(torch.tensor(math.sqrt(2 / math.pi), dtype=torch.bfloat16))  # 0.796875
+
+
+def _logistic(x):
+    return 1 / (torch.exp(-x) + 1)
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _logistic(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+class _Silu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
+class _Softplus(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        y = torch.where(torch.isnan(x), x, y)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        finite = lambda a: torch.where(torch.isinf(a), 0, a)   # noqa: E731
+        return g * torch.exp(finite(x) - finite(y))
+
+
+class _Gelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        x2 = x * x
+        t = torch.tanh((x + (x2 * x) * _GELU_C) * _GELU_K)
+        cdf = (t + 1) * 0.5
+        ctx.save_for_backward(x, x2, t, cdf)
+        return x * cdf
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x2, t, cdf = ctx.saved_tensors
+        dt = ((g * x) * 0.5) * (1 - t)
+        db = (dt + dt * t) * _GELU_K
+        return (g * cdf + db) + (db * _GELU_C) * (x2 * 3)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid`; bfloat16: 1 / (1 + exp(-x)), rounded after each op."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return _Sigmoid.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu`; bfloat16: x * (1 / (1 + exp(-x))), rounded after each op."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return _Silu.apply(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus` (`logaddexp(x, 0)`); bfloat16: max(x, 0) +
+    log1p(exp(-|x|)), rounded after each op, NaN passed through."""
+    if x.dtype != torch.bfloat16:
+        return F.softplus(x)
+    return _Softplus.apply(x)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.gelu`'s default: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    """`jax.nn.gelu`'s default, the tanh approximation; bfloat16:
+    x * (0.5 * (1 + tanh(k * (x + c * (x * x * x))))), rounded after each op,
+    with c = 0.044715 and k = sqrt(2 / pi) rounded to bfloat16."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    return _Gelu.apply(x)
 
 
 def mlp(x: torch.Tensor, p: dict, kind: str, compute_dtype=torch.bfloat16) -> torch.Tensor:
     if kind == "gated":
-        h = F.silu(linear(x, p["wg"], compute_dtype)) * linear(x, p["wi"], compute_dtype)
+        h = silu(linear(x, p["wg"], compute_dtype)) * linear(x, p["wi"], compute_dtype)
     else:
         h = gelu(linear(x, p["wi"], compute_dtype))
     return linear(h, p["wo"], compute_dtype)

@@ -87,15 +87,15 @@ def mamba_block(x, p, cfg, *, state=None):
     xs, z = torch.chunk(xz, 2, dim=-1)
     xs, new_conv = _causal_conv(xs, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype),
                                 state=st_conv)
-    xs = F.silu(xs)
+    xs = layers.silu(xs)
     proj = xs @ p["x_proj"].to(x.dtype)             # (B,T,dt_rank+2N)
     dt_raw = proj[..., :dt_rank]
     Bc = proj[..., dt_rank:dt_rank + D_STATE]
     Cc = proj[..., dt_rank + D_STATE:]
-    dt = F.softplus(dt_raw @ p["dt_proj"].to(x.dtype) + p["dt_bias"].to(x.dtype))
+    dt = layers.softplus(dt_raw @ p["dt_proj"].to(x.dtype) + p["dt_bias"].to(x.dtype))
     A = -torch.exp(p["A_log"].float())
     y, new_ssm = _selective_scan(xs, dt, Bc, Cc, A, p["D"].float(), state=st_ssm)
-    y = y.to(x.dtype) * F.silu(z)
+    y = y.to(x.dtype) * layers.silu(z)
     out = y @ p["out_proj"].to(x.dtype)
     return out, {"conv": new_conv, "ssm": new_ssm}
 

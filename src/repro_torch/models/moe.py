@@ -11,7 +11,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import layers
 
@@ -93,7 +92,7 @@ def moe_mlp(x, p, cfg, *, group_size: int = 512, capacity_factor: float = 1.25):
     xe = torch.einsum("gsec,gsd->egcd", dispatch, xt.to(cfg.dtype))
     wi, wg, wo = (p[n].to(cfg.dtype) for n in ("wi", "wg", "wo"))
     if cfg.mlp == "gated":
-        h = F.silu(torch.einsum("egcd,edf->egcf", xe, wg)) * \
+        h = layers.silu(torch.einsum("egcd,edf->egcf", xe, wg)) * \
             torch.einsum("egcd,edf->egcf", xe, wi)
     else:
         h = layers.gelu(torch.einsum("egcd,edf->egcf", xe, wi))

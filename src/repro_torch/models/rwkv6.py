@@ -61,7 +61,10 @@ def _shifted(x, xprev_last):
 
 
 def _mix_inputs(x, xprev, p, cfg):
-    """Token-shift LoRA: five modulated interpolations (w,k,v,r,g)."""
+    """Token-shift LoRA: five modulated interpolations (w,k,v,r,g).  The w
+    branch is left as its float32 sum: the reference upcasts it at once for
+    the decay LoRA, and its default compilation drops the bfloat16 rounding
+    between (`layers.add_norm`)."""
     delta = xprev - x                                             # (B,T,d)
     base = x + delta * p["mu"][0].to(x.dtype)
     lo = torch.tanh(base @ p["lora_a"].to(x.dtype))               # (B,T,5R)
@@ -69,7 +72,8 @@ def _mix_inputs(x, xprev, p, cfg):
     lo = lo.reshape(B, T, 5, LORA_RANK)
     mod = torch.einsum("btzr,zrd->btzd", lo, p["lora_b"].to(x.dtype))
     mus = p["mu"].to(x.dtype)                                     # (5, d)
-    return [x + delta * (mus[z] + mod[:, :, z]) for z in range(5)]
+    parts = [delta * (mus[z] + mod[:, :, z]) for z in range(5)]
+    return [x.float() + parts[0]] + [x + d for d in parts[1:]]
 
 
 def _wkv_scan(r, k, v, w, u, *, state=None):
@@ -104,7 +108,7 @@ def time_mix(x, p, cfg, *, xprev_last=None, state=None):
     r = (xr @ p["wr"].to(x.dtype)).reshape(B, T, H, hd)
     k = (xk @ p["wk"].to(x.dtype)).reshape(B, T, H, hd)
     v = (xv @ p["wv"].to(x.dtype)).reshape(B, T, H, hd)
-    g = F.silu(xg @ p["wg"].to(x.dtype))
+    g = layers.silu(xg @ p["wg"].to(x.dtype))
     # decay: w0 + per-token LoRA-modulated channel decay (uses the xw branch)
     wlog = p["w0"].float()[None, None, :] + \
         torch.tanh(xw.float() @ p["lora_a"].float()[:, :LORA_RANK]) @ p["lora_b"][0].float()
@@ -125,7 +129,7 @@ def channel_mix(x, p, cfg, *, xprev_last=None):
     xk = x + delta * mus[0]
     xr = x + delta * mus[1]
     k = torch.square(F.relu(xk @ p["ck"].to(x.dtype)))
-    r = torch.sigmoid(xr @ p["cr"].to(x.dtype))
+    r = layers.sigmoid(xr @ p["cr"].to(x.dtype))
     return r * (k @ p["cv"].to(x.dtype)), x[:, -1]
 
 

@@ -17,6 +17,7 @@ Entry points (all functions of (cfg, params, ...)):
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.ptq import QuantTensor
@@ -131,6 +132,19 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def unstack(tree) -> list:
+    """The layers of a stacked tree, every leaf split once along its leading
+    axis (`torch.unbind`).  Under autograd that is one node a leaf, whose
+    backward stacks the layers' gradients once; indexing layer by layer
+    would write a zero-filled full-size gradient for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        return [dict(zip(parts, layer_leaves)) for layer_leaves in zip(*parts.values())]
+    if isinstance(tree, QuantTensor):
+        return [QuantTensor(q, s) for q, s in zip(tree.q.unbind(0), tree.scale.unbind(0))]
+    return list(tree.unbind(0))
+
+
 def n_stacked(tree) -> int:
     """The length of a stacked tree's leading (layer) axis."""
     while isinstance(tree, dict):
@@ -143,10 +157,9 @@ def n_stacked(tree) -> int:
 # ---------------------------------------------------------------------------
 
 def _dense_body(cfg, x, blk, positions, *, causal=True):
-    h = x + attn.attention_block(
+    h, hn = layers.add_norm(x, attn.attention_block(
         layers.apply_norm(x, blk["norm1"], cfg.norm), blk["attn"], cfg,
-        positions, causal=causal)
-    hn = layers.apply_norm(h, blk["norm2"], cfg.norm)
+        positions, causal=causal), blk["norm2"], cfg.norm)
     if cfg.family == "moe":
         y, aux = moe.moe_mlp(hn, blk["mlp"], cfg)
     else:
@@ -156,8 +169,8 @@ def _dense_body(cfg, x, blk, positions, *, causal=True):
 
 def _rwkv_body(cfg, x, blk):
     y, _ = rwkv6.time_mix(layers.apply_norm(x, blk["norm1"], cfg.norm), blk["rwkv"], cfg)
-    h = x + y
-    y, _ = rwkv6.channel_mix(layers.apply_norm(h, blk["norm2"], cfg.norm), blk["rwkv"], cfg)
+    h, hn = layers.add_norm(x, y, blk["norm2"], cfg.norm)
+    y, _ = rwkv6.channel_mix(hn, blk["rwkv"], cfg)
     return h + y, 0.0
 
 
@@ -184,30 +197,34 @@ def _jamba_body(cfg, x, blk, positions):
         else:
             y, _ = mamba.mamba_block(xn, layer(blk["mamba"], mi), cfg)
             mi += 1
-        x = x + y
-        y, aux = _jamba_mlp(cfg, layers.apply_norm(x, layer(blk["norms"], 2 * s + 1), cfg.norm),
-                            blk, s)
+        x, xn = layers.add_norm(x, y, layer(blk["norms"], 2 * s + 1), cfg.norm)
+        y, aux = _jamba_mlp(cfg, xn, blk, s)
         aux_total = aux_total + aux
         x = x + y
     return x, aux_total
 
 
 def _whisper_dec_body(cfg, x, blk, positions, enc_k, enc_v):
-    h = x + attn.attention_block(
+    h, hn = layers.add_norm(x, attn.attention_block(
         layers.apply_norm(x, blk["norm1"], cfg.norm), blk["self"], cfg,
-        positions, causal=True)
-    h = h + attn.cross_attention_block(
-        layers.apply_norm(h, blk["norm2"], cfg.norm), blk["cross"], cfg, enc_k, enc_v)
-    h = h + layers.mlp(layers.apply_norm(h, blk["norm3"], cfg.norm),
-                       blk["mlp"], cfg.mlp, cfg.dtype)
+        positions, causal=True), blk["norm2"], cfg.norm)
+    h, hn = layers.add_norm(h, attn.cross_attention_block(hn, blk["cross"], cfg, enc_k, enc_v),
+                            blk["norm3"], cfg.norm)
+    h = h + layers.mlp(hn, blk["mlp"], cfg.mlp, cfg.dtype)
     return h, 0.0
 
 
-def _scan_blocks(x, stacked, body):
-    """x through the stacked blocks in order; body(x, blk) -> (x, aux)."""
+def _scan_blocks(cfg, x, stacked, body):
+    """x through the stacked blocks in order; body(x, blk) -> (x, aux).
+    With `cfg.remat`, while autograd records, each block keeps only its
+    inputs and recomputes its activations in the backward pass (the
+    reference's `jax.checkpoint(body)`); gradients are the same."""
+    def remat(x, blk):
+        return checkpoint(body, x, blk, use_reentrant=False)
+    fn = remat if cfg.remat and torch.is_grad_enabled() else body
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_stacked(stacked)):
-        x, a = body(x, layer(stacked, i))
+    for blk in unstack(stacked):
+        x, a = fn(x, blk)
         aux = aux + a
     return x, aux
 
@@ -220,7 +237,7 @@ def _encode_audio(cfg, params, frames):
     """frames (B, F, d_model) — precomputed by the stub conv frontend."""
     x = frames.to(cfg.dtype) + params["enc_pos"][None, :frames.shape[1]].to(cfg.dtype)
     positions = torch.arange(frames.shape[1], device=x.device)
-    x, _ = _scan_blocks(x, params["enc_blocks"],
+    x, _ = _scan_blocks(cfg, x, params["enc_blocks"],
                         lambda x, blk: _dense_body(cfg, x, blk, positions, causal=False))
     return layers.apply_norm(x, params["enc_final_norm"], cfg.norm)
 
@@ -257,14 +274,14 @@ def forward(cfg, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         def body(x, blk):
             ek, ev = attn.encoder_kv(enc_out, blk["cross"], cfg)
             return _whisper_dec_body(cfg, x, blk, positions, ek, ev)
-        x, aux = _scan_blocks(x, params["blocks"], body)
+        x, aux = _scan_blocks(cfg, x, params["blocks"], body)
     elif fam in ("dense", "moe", "vlm"):
-        x, aux = _scan_blocks(x, params["blocks"],
+        x, aux = _scan_blocks(cfg, x, params["blocks"],
                               lambda x, blk: _dense_body(cfg, x, blk, positions))
     elif fam == "ssm":
-        x, aux = _scan_blocks(x, params["blocks"], lambda x, blk: _rwkv_body(cfg, x, blk))
+        x, aux = _scan_blocks(cfg, x, params["blocks"], lambda x, blk: _rwkv_body(cfg, x, blk))
     elif fam == "hybrid":
-        x, aux = _scan_blocks(x, params["blocks"],
+        x, aux = _scan_blocks(cfg, x, params["blocks"],
                               lambda x, blk: _jamba_body(cfg, x, blk, positions))
     else:
         raise ValueError(fam)
@@ -335,15 +352,14 @@ def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos):
             xn = layers.apply_norm(x, blk["norm1"], cfg.norm)
             y, _ = attn.decode_attention_block(xn, blk[key_self], cfg,
                                                attn.KVCache(cache["k"][i], cache["v"][i]), pos)
-            x = x + y
             if fam == "audio":
-                x = x + attn.cross_attention_block(
-                    layers.apply_norm(x, blk["norm2"], cfg.norm), blk["cross"], cfg,
-                    cache["cross_k"][i], cache["cross_v"][i])
-                xn = layers.apply_norm(x, blk["norm3"], cfg.norm)
+                x, xn = layers.add_norm(x, y, blk["norm2"], cfg.norm)
+                x, xn = layers.add_norm(x, attn.cross_attention_block(
+                    xn, blk["cross"], cfg, cache["cross_k"][i], cache["cross_v"][i]),
+                    blk["norm3"], cfg.norm)
                 x = x + layers.mlp(xn, blk["mlp"], cfg.mlp, cfg.dtype)
             else:
-                xn = layers.apply_norm(x, blk["norm2"], cfg.norm)
+                x, xn = layers.add_norm(x, y, blk["norm2"], cfg.norm)
                 if fam == "moe":
                     y, _ = moe.moe_mlp(xn, blk["mlp"], cfg, group_size=B)
                 else:
@@ -355,10 +371,8 @@ def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos):
             y, (xtm, wkv) = rwkv6.time_mix(
                 layers.apply_norm(x, blk["norm1"], cfg.norm), blk["rwkv"], cfg,
                 xprev_last=cache["x_tm"][i], state=cache["wkv"][i])
-            x = x + y
-            y, xcm = rwkv6.channel_mix(
-                layers.apply_norm(x, blk["norm2"], cfg.norm), blk["rwkv"], cfg,
-                xprev_last=cache["x_cm"][i])
+            x, xn = layers.add_norm(x, y, blk["norm2"], cfg.norm)
+            y, xcm = rwkv6.channel_mix(xn, blk["rwkv"], cfg, xprev_last=cache["x_cm"][i])
             x = x + y
             cache["wkv"][i].copy_(wkv)
             cache["x_tm"][i].copy_(xtm)
@@ -379,9 +393,8 @@ def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos):
                     conv.copy_(nst["conv"])
                     ssm.copy_(nst["ssm"])
                     mi += 1
-                x = x + y
-                y, _ = _jamba_mlp(cfg, layers.apply_norm(x, layer(blk["norms"], 2 * s + 1),
-                                                         cfg.norm), blk, s, group_size=B)
+                x, xn = layers.add_norm(x, y, layer(blk["norms"], 2 * s + 1), cfg.norm)
+                y, _ = _jamba_mlp(cfg, xn, blk, s, group_size=B)
                 x = x + y
     else:
         raise ValueError(fam)
@@ -421,8 +434,7 @@ def prefill(cfg, params, batch: dict):
         for i in range(n_stacked(stacked)):
             blk = layer(stacked, i)
             o, k, v = self_attention(layers.apply_norm(x, blk["norm1"], cfg.norm), blk["attn"])
-            h = x + o
-            hn = layers.apply_norm(h, blk["norm2"], cfg.norm)
+            h, hn = layers.add_norm(x, o, blk["norm2"], cfg.norm)
             if fam == "moe":
                 y, _ = moe.moe_mlp(hn, blk["mlp"], cfg)
             else:
@@ -434,9 +446,8 @@ def prefill(cfg, params, batch: dict):
             blk = layer(stacked, i)
             y, (xtm, wkv) = rwkv6.time_mix(
                 layers.apply_norm(x, blk["norm1"], cfg.norm), blk["rwkv"], cfg)
-            h = x + y
-            y, xcm = rwkv6.channel_mix(
-                layers.apply_norm(h, blk["norm2"], cfg.norm), blk["rwkv"], cfg)
+            h, hn = layers.add_norm(x, y, blk["norm2"], cfg.norm)
+            y, xcm = rwkv6.channel_mix(hn, blk["rwkv"], cfg)
             x = h + y
             keep(wkv=wkv.float(), x_tm=xtm.to(cfg.dtype), x_cm=xcm.to(cfg.dtype))
     elif fam == "hybrid":
@@ -454,9 +465,8 @@ def prefill(cfg, params, batch: dict):
                     convs.append(nst["conv"])
                     ssms.append(nst["ssm"])
                     mi += 1
-                x = x + y
-                y, _ = _jamba_mlp(cfg, layers.apply_norm(x, layer(blk["norms"], 2 * s + 1),
-                                                         cfg.norm), blk, s)
+                x, xn = layers.add_norm(x, y, layer(blk["norms"], 2 * s + 1), cfg.norm)
+                y, _ = _jamba_mlp(cfg, xn, blk, s)
                 x = x + y
             keep(mamba_conv=torch.stack(convs).to(cfg.dtype), mamba_ssm=torch.stack(ssms))
     elif fam == "audio":
@@ -466,11 +476,10 @@ def prefill(cfg, params, batch: dict):
             blk = layer(stacked, i)
             ek, ev = attn.encoder_kv(enc_out, blk["cross"], cfg)
             o, k, v = self_attention(layers.apply_norm(x, blk["norm1"], cfg.norm), blk["self"])
-            h = x + o
-            h = h + attn.cross_attention_block(
-                layers.apply_norm(h, blk["norm2"], cfg.norm), blk["cross"], cfg, ek, ev)
-            x = h + layers.mlp(layers.apply_norm(h, blk["norm3"], cfg.norm),
-                               blk["mlp"], cfg.mlp, cfg.dtype)
+            h, hn = layers.add_norm(x, o, blk["norm2"], cfg.norm)
+            h, hn = layers.add_norm(h, attn.cross_attention_block(hn, blk["cross"], cfg, ek, ev),
+                                    blk["norm3"], cfg.norm)
+            x = h + layers.mlp(hn, blk["mlp"], cfg.mlp, cfg.dtype)
             keep(k=k, v=v, cross_k=ek.to(cfg.dtype), cross_v=ev.to(cfg.dtype))
     else:
         raise ValueError(fam)

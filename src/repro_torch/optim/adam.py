@@ -95,9 +95,18 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]
 
 def adam_update(grads: Any, state: AdamState, params: Any,
                 cfg: AdamConfig = AdamConfig(),
-                lr: torch.Tensor | float | None = None):
+                lr: torch.Tensor | float | None = None, *, donate: bool = False):
     """Returns (new_params, new_state, metrics).  No autograd: call it on
-    gradients, outside the graph."""
+    gradients, outside the graph.  By default the update is functional,
+    as the reference's: `params` and `state` are left as they were, which
+    callers that update one tree twice rely on (`tests/test_torch_optim.py`
+    holds the clip fold, layer chunking and key order so; done in place,
+    those comparisons would hold one tensor against itself).  `donate`
+    writes the new params and moments into the tensors passed in, leaf by
+    leaf (the reference's jitted train step donates them), so the update
+    holds one leaf's temporaries instead of a second copy of params and
+    moments; `runtime/steps.make_train_step` uses it.  The same values
+    either way."""
     flat_p = tree_leaves(params)
     flat_g = _leaves_like(grads, params)
     flat_m = _leaves_like(state.mu, params)
@@ -127,11 +136,21 @@ def adam_update(grads: Any, state: AdamState, params: Any,
         newp = p.float() - lr_t * update
         return newp.to(p.dtype), m32.to(cfg.moment_dtype), v32.to(cfg.moment_dtype)
 
+    def upd_into(p, g, m, v):
+        out = upd(p, g, m, v)
+        if not donate:
+            return out
+        for dst, src in zip((p, m, v), out):
+            dst.copy_(src)
+        return p, m, v
+
     def upd_leaf(p, g, m, v):
         if cfg.layer_chunked and p.dim() >= 3 and p.shape[0] > 1:
-            parts = [upd(p[i], g[i], m[i], v[i]) for i in range(p.shape[0])]
+            parts = [upd_into(p[i], g[i], m[i], v[i]) for i in range(p.shape[0])]
+            if donate:
+                return p, m, v
             return tuple(torch.stack([part[k] for part in parts]) for k in range(3))
-        return upd(p, g, m, v)
+        return upd_into(p, g, m, v)
 
     with torch.no_grad():
         new = [upd_leaf(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]

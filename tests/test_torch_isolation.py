@@ -1,5 +1,6 @@
 """The port stands alone: no module of `repro_torch`, nor `chip_smoke.py`,
-loads JAX or anything of the JAX package `repro`."""
+loads JAX, anything of the JAX package `repro`, or `ml_dtypes` (which the
+card's machine does not have)."""
 import pathlib
 import shutil
 import subprocess
@@ -19,7 +20,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
        "repro_torch.kernels.maxpool2d.ops", "repro_torch.kernels.sigmoid_pla.ops",
        "repro_torch.core.deploy", "repro_torch.optim.adam",
@@ -32,7 +33,10 @@ new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
        "repro_torch.models.scan_utils", "repro_torch.models.mamba",
        "repro_torch.models.rwkv6", "repro_torch.models.transformer",
        "repro_torch.models.model", "repro_torch.serving.engine",
-       "repro_torch.launch.serve", "repro_torch.analysis.profiler_windows"]
+       "repro_torch.launch.serve", "repro_torch.analysis.profiler_windows",
+       "repro_torch.data.lm_data", "repro_torch.checkpoint.ckpt",
+       "repro_torch.runtime.steps", "repro_torch.runtime.fault",
+       "repro_torch.runtime.trainer", "repro_torch.launch.train"]
 assert all(m in names for m in new), sorted(set(new) - set(names))
 print(len(names), bad)
 """
