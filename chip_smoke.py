@@ -191,13 +191,33 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             peak), MFU, tokens/s, peak memory, then one step under
             torch.profiler: the device's busy share, Adam's device time
             against its bytes' bound, the aten ops by device time
+  distributed  (`phase_distributed`) in a child process of its own, rank 0
+            of a world of one, with its own time limit (its JSON lines
+            passed on, a non-zero exit failing the run): a NCCL group on
+            cuda:0 (`launch.train.init_distributed`) and its DeviceMesh;
+            the compressed all-reduce and two rounds of error feedback on a
+            smoke-width granite gradient tree, bit for bit against the same
+            calls through a gloo group on the CPU; both timed at full
+            width over granite-3-2b's float32 gradient-shaped tree (2.534 B
+            elements, leaf by leaf) beside the least bytes they move over
+            the HBM rate and the bytes the all_reduce calls move; a CPU-saved
+            checkpoint restored as DTensors on the card's (1,1) mesh under
+            the train_4k specs, bit for bit; 20 smoke steps of
+            `launch.train.main` with and without --distributed, losses and
+            state bit for bit under deterministic mode; 1024 requests
+            through VisionEngine(mesh=make_serving_mesh()) on fixed_cuda and
+            cuda_plan, scores equal to the unsharded engine's, 1
+            fixed_smallnet / float_smallnet launch a step a mesh device;
+            the full dry-run sweep (`launch.dryrun`, meta device): 64 cells,
+            0 failures
   host      16 synchronous served steps: wall time per step against the
             engine's busy window per step, and the host time outside it
   profile   a torch.profiler trace of 16 served steps, then one of 16 sweep
             frames at 112x112: device busy share and device time by kernel
   kernels   one line listing every ported kernel (launches counted on the
-            serve, composed, train, ladder, latency, router, sweep and disagg
-            paths, reset to 0 before each and read after)
+            serve, composed, train, ladder, latency, router, sweep, disagg
+            and distributed (mesh engine) paths, reset to 0 before each and
+            read after)
   profiler  only where a profiled window (20 ms of host idle at each end)
             lost all its device activity: a device time or a launch count
             of a call that gives the same each time is measured again, at
@@ -293,6 +313,12 @@ LM_TRAIN_TIMED = 4
 LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_SEQ, LM_CUT_LR = 2, 1, 16, 1e-4
 LM_CUT_TOL, LM_CUT_PARAM_TOL = 1e-4, 1e-6
 CUBLAS_DETERMINISTIC = ":4096:8"
+# the distributed phase: its child process' argument and time limit; the
+# full-width compression's timed calls; the launcher's smoke steps
+DIST_CHILD_ARG = "--distributed-child"
+DIST_TIMEOUT_S = 300
+DIST_TIMED = 3
+DIST_TRAIN_STEPS = 20
 
 KERNELS = {
     "fixed_conv2d": ("src/repro_torch/csrc/fixed_conv.cu",
@@ -3219,6 +3245,313 @@ def phase_train_lm(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- distribution: the process group, the compressed all-reduce, the elastic
+# -- restore, the launcher's --distributed, the mesh engine and the dry run ---------
+
+def dist_grads(cfg, gen, device: str) -> dict:
+    """A float32 tree with the shapes of `cfg`'s params (its gradients'),
+    drawn normal from `gen` on the CPU and moved to `device`."""
+    import torch
+    from repro_torch.core.backends import tree_map
+    from repro_torch.models.model import abstract_params
+    return tree_map(lambda t: torch.randn(t.shape, generator=gen).to(device),
+                    abstract_params(cfg)[0])
+
+
+def dist_compression_equal(mesh, gloo, card: str) -> None:
+    """The compressed all-reduce and two rounds of error feedback on a
+    smoke-width granite gradient tree: the world-of-one NCCL mesh on the
+    card against the same calls through a gloo group on the CPU, leaf by
+    leaf, bit for bit."""
+    import types
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.backends import tree_leaves, tree_map
+    from repro_torch.distributed import compression as C
+
+    cpu_mesh = types.SimpleNamespace(mesh_dim_names=("pod",), get_group=lambda axis: gloo,
+                                     size=lambda dim: 1)
+    cfg = get_config(LM_ARCH).smoke()
+    grads = [dist_grads(cfg, torch.Generator().manual_seed(s), "cpu") for s in (0, 1)]
+    out = {}
+    for dev, m in (("cuda", mesh), ("cpu", cpu_mesh)):
+        g1, g2 = (tree_map(lambda t, dev=dev: t.to(dev), g) for g in grads)
+        summed = C.make_compressed_allreduce(m, "pod")(g1)
+        sent1, res1 = C.compression_error_feedback(g1, None)
+        sent2, res2 = C.compression_error_feedback(g2, res1)
+        out[dev] = [t.cpu() for tree in (summed, sent1, res1, sent2, res2)
+                    for t in tree_leaves(tree)]
+    unequal = [i for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])) if not torch.equal(a, b)]
+    expect(len(out["cuda"]) == len(out["cpu"]) and not unequal,
+           f"distributed: compression on the card differs from the CPU's in {unequal[:4]}")
+    emit("distributed", part="compression: card (NCCL) against CPU (gloo), smoke width",
+         arch=LM_ARCH, leaves=len(out["cuda"]) // 5, elements=sum(
+             t.numel() for t in tree_leaves(grads[0])), bit_equal=True, card=card)
+
+
+def dist_compression_full(mesh, card: str) -> None:
+    """granite-3-2b's float32 gradient-shaped tree (2.534 B elements, leaf
+    by leaf) on the card: the compressed all-reduce and the error feedback
+    timed with CUDA events (median of DIST_TIMED after a warm call), beside
+    the least bytes each must move (all-reduce: read each element, write
+    the result; error feedback: read the gradient and the residual, write
+    what is sent and the new residual) over the HBM rate, and the bytes
+    the all_reduce calls move against a float32 all-reduce's."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.backends import tree_leaves, tree_map
+    from repro_torch.distributed import compression as C
+    from repro_torch.models.model import abstract_params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen, device="cuda"),
+                     abstract_params(get_config(LM_ARCH))[0])
+    n = sum(t.numel() for t in tree_leaves(grads))
+    allreduce = C.make_compressed_allreduce(mesh, "pod")
+
+    def timed(fn):
+        fn()
+        times = []
+        for _ in range(DIST_TIMED):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    ar_ms = timed(lambda: allreduce(grads))
+    state = {"residual": None}
+
+    def feedback():
+        _, state["residual"] = C.compression_error_feedback(grads, state["residual"])
+    ef_ms = timed(feedback)
+    wire = sum(C.allreduce_bytes(t.numel()) for t in tree_leaves(grads))
+    rows = {}
+    for name, times, nbytes in (("compressed_allreduce", ar_ms, 8 * n),
+                                ("error_feedback", ef_ms, 16 * n)):
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": times, "ms_median": statistics.median(times), "bound_ms": bound,
+                      "bound_bytes": nbytes, "over_bound": statistics.median(times) / bound}
+    emit("distributed", part="compression: full width, world of one", arch=LM_ARCH,
+         elements=n, leaves=len(tree_leaves(grads)), timed=DIST_TIMED, **rows,
+         allreduce_call_bytes=wire, float32_allreduce_bytes=4 * n,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), card=card)
+    del grads, state
+    torch.cuda.empty_cache()
+
+
+def dist_restore(card: str) -> None:
+    """A checkpoint of granite-3-2b's smoke params saved from the CPU,
+    restored onto a (1,1) ("data","model") DeviceMesh of the card as
+    DTensors under the train_4k rules' specs (`restore_checkpoint(
+    shardings=)`): every leaf a DTensor with the spec's placements, equal
+    to the saved tensor bit for bit."""
+    import shutil
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.core.backends import tree_leaves, tree_map
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(LM_ARCH).smoke()
+    params, axes = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ck = ROOT / "build" / "distributed" / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    save_checkpoint(ck, 1, params)
+    mesh = make_device_mesh((1, 1), ("data", "model"))
+    shape = SHAPES["train_4k"]
+    rules = shd.make_rules(mesh_axes=mesh.mesh_dim_names, global_batch=shape.global_batch,
+                           n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           seq_len=shape.seq_len, family=cfg.family)
+    with shd.sharding_rules(rules):
+        specs = shd.specs_from_axes(axes)
+    shardings = tree_map(lambda spec: shd.NamedSharding(mesh, spec), specs,
+                         is_leaf=lambda x: isinstance(x, shd.P))
+    like = tree_map(lambda t: t.to("cuda"), params)
+    restored = restore_checkpoint(ck, like, shardings=shardings)
+    got, want = tree_leaves(restored), tree_leaves(params)
+    sh = tree_leaves(shardings, is_leaf=lambda x: isinstance(x, shd.NamedSharding))
+    expect(all(isinstance(t, DTensor) and t.device.type == "cuda" for t in got),
+           "distributed restore: a leaf is not a DTensor on the card")
+    expect(all(list(t.placements) == s.placements() for t, s in zip(got, sh)),
+           "distributed restore: placements differ from the specs'")
+    unequal = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.equal(a.full_tensor().cpu(), b)]
+    expect(not unequal, f"distributed restore: leaves {unequal[:4]} differ from the saved ones")
+    emit("distributed", part="elastic restore: CPU save -> DTensors on the card's mesh",
+         arch=LM_ARCH, leaves=len(got), mesh={"data": 1, "model": 1},
+         sharded_leaves=sum(any(e is not None for e in s.spec) for s in sh),
+         bit_equal=True, card=card)
+
+
+def dist_launcher(card: str) -> None:
+    """DIST_TRAIN_STEPS smoke steps of `launch.train` with and without
+    `--distributed` (a world-of-one NCCL group from the RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR and MASTER_PORT this process was given), under
+    deterministic mode with CUBLAS_WORKSPACE_CONFIG set around these runs
+    alone: losses and every state leaf bit for bit."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.backends import tree_leaves
+    from repro_torch.launch import train
+
+    argv = ["--arch", LM_ARCH, "--preset", "smoke", "--steps", str(DIST_TRAIN_STEPS)]
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, hist = train.main(argv)
+        t0 = time.perf_counter()
+        flagged, hist_d = train.main(argv + ["--distributed"])
+        wall_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+    expect(not dist.is_initialized(), "distributed launcher: the group outlived the run")
+    a, b = tree_leaves(plain), tree_leaves(flagged)
+    unequal = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    expect(hist_d == hist and len(hist) == DIST_TRAIN_STEPS,
+           f"distributed launcher: losses {hist_d} != {hist}")
+    expect(not unequal and b[0].is_cuda, f"distributed launcher: leaves differ {unequal[:4]}")
+    emit("distributed", part="launch.train --distributed: world of one, deterministic",
+         argv=argv + ["--distributed"], backend="nccl", steps=len(hist), losses=hist_d,
+         bit_equal=True, wall_s=wall_s, steps_per_s=len(hist) / wall_s, card=card)
+
+
+def dist_mesh_engine(card: str) -> None:
+    """N_REQUESTS through `VisionEngine(mesh=make_serving_mesh())` on
+    fixed_cuda and cuda_plan, started, against the unsharded engine on the
+    card over the same requests: scores equal word for word (bit for bit),
+    one fixed_smallnet / float_smallnet launch a step a mesh device (the
+    counts go to the parent's `kernels` line)."""
+    import numpy as np
+    from repro_torch.data import synth_mnist
+    from repro_torch.distributed.sharding import vision_batch_devices
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.vision_engine import VisionEngine
+
+    params = params_on(seeded_params(0), "cpu")
+    images, _ = synth_mnist.make_dataset(N_REQUESTS, seed=1)
+    mesh = make_serving_mesh()
+    n_dev = len(vision_batch_devices(mesh))      # the devices that compute a shard
+    for backend, kernel in (("fixed_cuda", "fixed_smallnet"), ("cuda_plan", "float_smallnet")):
+        base = VisionEngine(params, backend=backend, batch_size=ENGINE_BATCH,
+                            device="cuda").serve(list(images))
+        eng = VisionEngine(params, backend=backend, batch_size=ENGINE_BATCH, mesh=mesh)
+        reset_launches()
+        eng.start()
+        try:
+            t0 = time.perf_counter()
+            res = eng.serve(list(images))
+            wall_s = time.perf_counter() - t0
+        finally:
+            eng.stop()
+        counts = launches()
+        st = eng.stats()
+        got = np.stack([r.scores for r in res])
+        want = np.stack([r.scores for r in base])
+        expect(got.dtype == want.dtype and np.array_equal(got, want),
+               f"mesh engine {backend}: scores differ from the unsharded engine's")
+        expect([r.pred for r in res] == [r.pred for r in base],
+               f"mesh engine {backend}: predictions differ")
+        expect(st["accounted"] and st["n"] == N_REQUESTS and st["mesh_devices"] == n_dev,
+               f"mesh engine {backend}: stats {st}")
+        expect(counts == {kernel: st["batches"] * n_dev},
+               f"mesh engine {backend}: launches {counts}, {st['batches']} steps")
+        emit("distributed", part="mesh engine", backend=backend, mesh_devices=n_dev,
+             batch_size=eng.batch_size, requests=N_REQUESTS, steps=st["batches"],
+             launches=counts, scores_equal_unsharded=True, wall_s=wall_s,
+             served_per_wall_s=N_REQUESTS / wall_s, card=card)
+
+
+def dist_dryrun(card: str) -> None:
+    """The full dry-run sweep on the meta device: every cell of
+    `configs.base.cells()` on both production meshes, 0 failures."""
+    from repro_torch.configs.base import cells
+    from repro_torch.launch import dryrun
+
+    out = ROOT / "build" / "dryrun" / "smoke.json"
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--force", "--out", str(out)])
+    wall_s = time.perf_counter() - t0
+    res = json.loads(out.read_text())
+    failures = [k for k, v in res.items() if not v["ok"]]
+    expect(rc == 0 and not failures and len(res) == 2 * len(cells()),
+           f"dry run: rc {rc}, {len(res)} cells, failures {failures[:4]}")
+    big = res["llama3-405b|train_4k|multi_pod"]["memory"]
+    emit("distributed", part="dry run (meta device)", cells=len(res), failures=0,
+         wall_s=wall_s, llama3_405b_train_4k_multi_pod=big, card=card)
+
+
+def distributed_child(card: str) -> None:
+    """The distributed phase's body, in its own process (`phase_distributed`)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import init_distributed
+
+    expect(torch.cuda.device_count() >= 1, "distributed: no card")
+    device = init_distributed(None)
+    try:
+        expect(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and device == "cuda:0",
+               f"distributed: {dist.get_backend()} world {dist.get_world_size()} on {device}")
+        mesh = make_device_mesh((1,), ("pod",))
+        gloo = dist.new_group(backend="gloo")                # the CPU side of the comparison
+        emit("distributed", part="group", backend=dist.get_backend(),
+             world_size=dist.get_world_size(), rank=dist.get_rank(), device=device,
+             mesh={"pod": mesh.size()}, card=card)
+        dist_compression_equal(mesh, gloo, card)
+        dist_compression_full(mesh, card)
+        dist_restore(card)
+    finally:
+        dist.destroy_process_group()
+    dist_launcher(card)
+    dist_mesh_engine(card)
+    dist_dryrun(card)
+
+
+def phase_distributed(card: str) -> list[dict]:
+    """Run `distributed_child` in a child process (RANK 0 of a world of
+    one, MASTER_PORT 0: the store takes a free port) with its own time
+    limit; pass its JSON lines on; fail on a non-zero exit; return the
+    mesh engine's launch counts."""
+    import os
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT="0")
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), DIST_CHILD_ARG, card],
+                             env=env, cwd=ROOT, capture_output=True, text=True,
+                             timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeError(f"distributed: the child ran past {DIST_TIMEOUT_S} s") from e
+    runs = []
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            print(line, flush=True)
+            row = json.loads(line)
+            if row.get("part") == "mesh engine":
+                runs.append(row["launches"])
+    expect(out.returncode == 0,
+           f"distributed: the child exited {out.returncode}: {out.stderr[-3000:]}")
+    expect(len(runs) == 2, "distributed: the child reported no mesh engine launches")
+    emit("distributed", part="phase", seconds=time.perf_counter() - t0, card=card)
+    return runs
+
+
 def phase_profile(params, images, card):
     """Where a served step's time goes.  First 16 synchronous engine steps
     without a profiler, the requests queued beforehand: their wall time per
@@ -3386,6 +3719,9 @@ def main() -> int:
         return 3
     sys.path.insert(0, str(ROOT / "src"))
     load_peaks()
+    if sys.argv[1:2] == [DIST_CHILD_ARG]:              # the distributed phase's process
+        distributed_child(sys.argv[2])
+        return 0
     kind = torch.cuda.get_device_name(0)
     run(nvidia_smi_line(), kind, torch.cuda.device_count())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3491,6 +3827,7 @@ def run(card: str, kind: str, count: int) -> None:
     runs += phase_disagg(card)
     phase_lm(card)
     phase_train_lm(card)
+    runs += phase_distributed(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)
     for name, row in table.items():

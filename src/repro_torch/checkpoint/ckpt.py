@@ -16,7 +16,8 @@ Port of `repro.checkpoint.ckpt`; each package reads the other's files.
     then a writer thread serializes while the next step runs
 
 Leaves are tensors (or numpy arrays) on any device; they restore onto the
-device of the `tree_like` leaf they replace, in its dtype.
+device of the `tree_like` leaf they replace, in its dtype, or, given
+`shardings`, as DTensors on a `DeviceMesh` (the elastic restore).
 """
 from __future__ import annotations
 
@@ -142,6 +143,26 @@ def _from_saved(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _shardings_by_leaf(shardings: Any, like: Any, path: str = "") -> dict[str, Any]:
+    """Leaf path -> sharding, `shardings` walked beside `like`: a None node
+    leaves everything under it unsharded (a tree prefix, as JAX's
+    shardings are); any other node must have `like`'s structure."""
+    if shardings is None:
+        return {}
+    kids, like_kids = _children(shardings), _children(like)
+    if kids is None:
+        if like_kids is not None:
+            raise ValueError(f"shardings: one sharding at {path or 'the root'}, a subtree "
+                             "in tree_like")
+        return {path: shardings}
+    if like_kids is None or [k for k, _ in kids] != [k for k, _ in like_kids]:
+        raise ValueError(f"shardings: the tree at {path or 'the root'} is not tree_like's")
+    out: dict[str, Any] = {}
+    for key, child in kids:
+        out.update(_shardings_by_leaf(child, dict(like_kids)[key], path + key))
+    return out
+
+
 def restore_checkpoint(dirpath: str | pathlib.Path, tree_like: Any,
                        step: int | None = None, *, shardings: Any = None) -> Any:
     """Restore step `step` (default: the latest) into the structure of
@@ -149,10 +170,13 @@ def restore_checkpoint(dirpath: str | pathlib.Path, tree_like: Any,
     that leaf's device.  Raises IOError where an array's crc32, or the
     npz's own, disagrees.
 
-    `shardings` is the reference's re-shard onto another mesh; it has no
-    meaning before the port is distributed, so only None is accepted."""
-    if shardings is not None:
-        raise ValueError("shardings: the port restores onto one device; pass None")
+    `shardings` (a tree shaped as `tree_like` whose leaves are
+    `distributed.sharding.NamedSharding`s, None standing for a whole
+    unsharded subtree) re-shards onto the current mesh: a leaf with a
+    sharding comes back as a DTensor laid out by it (`distribute_tensor`
+    on its `DeviceMesh`, every rank having read the same file), the others
+    as above.  That is the elastic-scaling path: a checkpoint saved on
+    mesh A restores on any mesh B."""
     d = pathlib.Path(dirpath)
     if step is None:
         step = latest_step(d)
@@ -174,7 +198,16 @@ def restore_checkpoint(dirpath: str | pathlib.Path, tree_like: Any,
             raise IOError(f"checkpoint corruption in {k} at step {step}")
         tensors[k] = _from_saved(arrays[k], meta["dtype"])
     flat_like = _flatten(tree_like)
-    out = {k: tensors[k].to(like.device, like.dtype) for k, like in flat_like.items()}
+    flat_sh = _shardings_by_leaf(shardings, tree_like)
+    out = {}
+    for k, like in flat_like.items():
+        sh = flat_sh.get(k)
+        if sh is None:
+            out[k] = tensors[k].to(like.device, like.dtype)
+        else:
+            from torch.distributed.tensor import distribute_tensor
+            out[k] = distribute_tensor(tensors[k].to(sh.mesh.device_type, like.dtype),
+                                       sh.mesh, sh.placements())
     return _unflatten(tree_like, out)
 
 

@@ -159,7 +159,9 @@ class Backend:
     def maxpool2x2(self, x):
         return maxpool_2x2(x)
 
-    def dense(self, x, w, b):
+    def dense(self, x, w, b, scale=None):
+        """`scale`: a whole batch's `batch_scale`, where the batch was split
+        in shards; every backend but int8 ignores it."""
         return x @ w + b
 
     def sigmoid(self, x):
@@ -203,6 +205,13 @@ class Backend:
         The default composes two hooks; `fixed_cuda` fuses it into one
         launch."""
         return self.maxpool2x2(self.fused_conv_act(x, w, b))
+
+    def batch_scale(self, feats):
+        """The dense layer's statistic over a whole batch whose pooled
+        feature maps are split in `feats` (one tensor a shard), or None
+        where each shard's own is the batch's: every backend's forward is
+        per image but int8's."""
+        return None
 
     def net_scores(self, images, p):
         """The whole forward in one step: (B,H,W,1) float images ->
@@ -349,7 +358,7 @@ class FixedBackend(Backend):
     def maxpool2x2(self, x):
         return fixed_maxpool2x2_plain(x)
 
-    def dense(self, x, w, b):
+    def dense(self, x, w, b, scale=None):
         return fixed_dense_plain(x, w, b, cfg=self.cfg)
 
     def sigmoid(self, x):
@@ -425,7 +434,7 @@ class FixedCudaBackend(FixedBackend):
     def maxpool2x2(self, x):
         return fixed_maxpool2x2(x)
 
-    def dense(self, x, w, b):
+    def dense(self, x, w, b, scale=None):
         return fixed_dense(x, w, b, cfg=self.cfg)
 
     def sigmoid(self, x):
@@ -472,12 +481,23 @@ class Int8Backend(Backend):
         w = w.dequantize() if isinstance(w, ptq.QuantTensor) else w
         return super().mask_conv_weight(w, mask)
 
-    def dense(self, x, w, b):
+    def dense(self, x, w, b, scale=None):
         if not isinstance(w, ptq.QuantTensor):           # float weights
             return x @ w + b
-        xq = ptq.quantize(x, dataclasses.replace(self.qcfg, per_channel=False))
+        if scale is None:
+            scale = ptq.calibrate_activation_scale(x, self.qcfg)
+        xq = ptq.quantize_activation(x, scale, dataclasses.replace(self.qcfg, per_channel=False))
         y = quant_matmul(xq.q, w.q, xq.scale.reshape(()), w.scale.reshape(-1))
         return y + b
+
+    def batch_scale(self, feats):
+        # the per-tensor activation scale couples a batch's images: taken
+        # over every shard, gathered on the first one's device
+        if len(feats) == 1:
+            return None
+        home = feats[0].device
+        return ptq.calibrate_activation_scale(
+            torch.cat([self.flatten(f).to(home) for f in feats]), self.qcfg)
 
     def sigmoid(self, x):
         return fxp.sigmoid_plan_f32(x)

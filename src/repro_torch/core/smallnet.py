@@ -19,8 +19,10 @@ Qm.n int32 words on the fixed ones; `predict` takes both.
 
 Device rule (core/device.py): images that are a tensor stay on its device;
 anything else goes to `device`, which defaults to "cuda" and raises where
-there is none.  Params are moved next to the images.  There is no mesh, so
-the reference's `_constrain_batch` has no counterpart.
+there is none.  Params are moved next to the images.  The reference's
+`_constrain_batch` (a sharding hint to its compiler) has no counterpart:
+`apply_sharded` runs a batch split across a serving mesh's devices
+(`VisionEngine(mesh=)`).
 
 Training (`init_params`, `forward_logits`, `loss_fn`; the loop is
 `core/deploy.py`) runs on the `ref` backend's plain PyTorch ops under
@@ -81,9 +83,10 @@ def _conv_stages(be: B.Backend, p: dict, images: torch.Tensor) -> torch.Tensor:
     return be.fused_conv_act_pool(x, p["conv2"]["w"], p["conv2"]["b"])
 
 
-def _dense_preact(be: B.Backend, p: dict, feats: torch.Tensor) -> torch.Tensor:
-    """Pooled feature maps -> PRE-activation class scores (B, 10)."""
-    return be.dense(be.flatten(feats), p["dense"]["w"], p["dense"]["b"])
+def _dense_preact(be: B.Backend, p: dict, feats: torch.Tensor, scale=None) -> torch.Tensor:
+    """Pooled feature maps -> PRE-activation class scores (B, 10); `scale`
+    is the whole batch's `batch_scale` where the batch was split."""
+    return be.dense(be.flatten(feats), p["dense"]["w"], p["dense"]["b"], scale)
 
 
 def conv_trunk(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
@@ -122,17 +125,31 @@ def apply(params: dict, images, *, backend: str | B.Backend = "fixed_cuda",
     already backend-native (the int32 words of `quantize_params_fixed`, the
     QuantTensors of `quantize_params_int8`).  Scores are float32 in (0, 1)
     on the float and int8 backends and Qm.n int32 words on the fixed ones;
-    `predict` is the Max Finder over either.  A backend's `net_scores`
-    hook, where it gives scores, takes the whole forward (`fixed_cuda`,
-    `cuda`, `cuda_plan`: one launch for the images its kernel takes);
-    otherwise the stages compose."""
+    `predict` is the Max Finder over either."""
     be = B.get_backend(backend)
     x = _images(images, device)
-    p = be.prepare_params(params, x.device)
-    scores = be.net_scores(x, p)           # one launch on fixed_cuda, cuda, cuda_plan
-    if scores is not None:
+    return apply_sharded([be.prepare_params(params, x.device)], [x], backend=be)[0]
+
+
+def apply_sharded(params: list, shards: list[torch.Tensor], *,
+                  backend: str | B.Backend = "fixed_cuda") -> list[torch.Tensor]:
+    """`apply` over a batch split in `shards` (image tensors, each on its
+    own device; `params[i]` backend-native on shard i's): the scores of
+    each shard, equal to its rows of the unsharded batch's.  A backend's
+    `net_scores` hook, where it gives scores, takes the whole forward
+    (`fixed_cuda`, `cuda`, `cuda_plan`: one launch a shard for the images
+    its kernel takes); otherwise the stages compose, and the dense layer
+    takes the backend's `batch_scale` over every shard (int8's activation
+    scale, which the reference's sharded step reduces across its mesh).
+    Every shard is launched before any is waited for."""
+    be = B.get_backend(backend)
+    scores = [be.net_scores(x, p) for p, x in zip(params, shards)]
+    if all(s is not None for s in scores):
         return scores
-    return be.sigmoid(_dense_preact(be, p, _conv_stages(be, p, x)))
+    feats = [_conv_stages(be, p, x) for p, x in zip(params, shards)]
+    scale = be.batch_scale(feats)
+    return [be.sigmoid(_dense_preact(be, p, f, None if scale is None else scale.to(f.device)))
+            for p, f in zip(params, feats)]
 
 
 def forward(params: dict, images, *, sigmoid=torch.sigmoid,

@@ -1,10 +1,11 @@
 """Replica router: SLO-aware fleet-level serving over N vision engines.
 
-Port of `repro.serving.router` to the port's engines on one device: the
-`mesh` argument of `from_backends` becomes `device` ("cuda" unless the
-caller asks for the CPU); replicas are distinct backends on that device,
-drained one after another (see `run`).  Dispatch, failover, autoscaling
-and the fleet ledger are the reference's.
+Port of `repro.serving.router` to the port's engines: `from_backends`
+builds its replicas on `device` ("cuda" unless the caller asks for the
+CPU) or, as the reference's, on a serving `mesh` (each engine splitting
+its steps across it); replicas are drained one after another (see `run`).
+Dispatch, failover, autoscaling and the fleet ledger are the
+reference's.
 
 The survey line of FPGA accelerator work (Guo et al.; ZynqNet) scales
 throughput by REPLICATING the compute unit and partitioning the data path;
@@ -162,16 +163,16 @@ class ReplicaRouter:
 
     @classmethod
     def from_backends(cls, params: Any, backends: Iterable[str], *,
-                      batch_size: int = 32,
+                      batch_size: int = 32, mesh: Any = None,
                       device: torch.device | str | None = None,
                       warmup: bool = True, policy: str = "least_loaded",
                       engine_kw: dict | None = None,
                       **router_kw) -> "ReplicaRouter":
         """Build one replica per backend name over shared float params (each
         engine quantizes its own copy — the paper's per-substrate bake), all
-        on `device`."""
+        on `device` or all on `mesh`."""
         return cls([VisionEngine(params, backend=b, batch_size=batch_size,
-                                 device=device, warmup=warmup,
+                                 mesh=mesh, device=device, warmup=warmup,
                                  **(engine_kw or {}))
                     for b in backends], policy=policy, **router_kw)
 

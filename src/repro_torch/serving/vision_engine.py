@@ -1,12 +1,20 @@
 """Streaming vision serving engine: continuous batching over async requests.
 
-Port of `repro.serving.vision_engine` to PyTorch on one device.  The
-reference's `jax.jit` step becomes an eager torch step on the engine's
-explicit `device` ("cuda" unless the caller asks for the CPU), which
-synchronizes before `t_done` in place of `block_until_ready`; the `mesh`
-argument and its `NamedSharding` are dropped (one device); `warmup` builds
-and launches the kernels outside the serving clock.  Everything else —
+Port of `repro.serving.vision_engine` to PyTorch.  The reference's
+`jax.jit` step becomes an eager torch step on the engine's explicit
+`device` ("cuda" unless the caller asks for the CPU), which synchronizes
+before `t_done` in place of `block_until_ready`; `warmup` builds and
+launches the kernels outside the serving clock.  Everything else —
 batching, admission sheds, the ledger, the spans — is the reference's.
+
+Pass a serving mesh (`launch/mesh.make_serving_mesh`) in place of `device`
+and each step's batch is split across the mesh's batch axes (the vision
+rules of `distributed/sharding.py`): `batch_size` is rounded UP to a
+multiple of `vision_batch_multiple(mesh)`, the params are prepared once a
+device, every shard is launched on its device before any is waited for
+(`smallnet.apply_sharded`), and the scores are gathered in order.  The
+words equal the unsharded engine's, whose step is the same over one
+shard.  For fleets of engines see `serving/router.py`.
 
 The GPU analogue of the paper's deployment loop — there, pixels stream from
 the PS over a DMA-FIFO into the fabric and classifications stream back; here,
@@ -68,6 +76,7 @@ import torch
 from repro_torch.core import backends as B
 from repro_torch.core import smallnet
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.obs import metrics as M
 from repro_torch.obs import trace as T
 
@@ -138,15 +147,26 @@ class VisionEngine:
 
     def __init__(self, params: Any, *, backend: str | B.Backend = "fixed_cuda",
                  batch_size: int = 32, image_shape=(28, 28, 1),
-                 warmup: bool = True,
+                 warmup: bool = True, mesh: Any = None,
                  device: torch.device | str | None = None,
                  max_queue: int | None = None,
                  max_age_ms: float | None = None,
                  min_step_s: float = 0.0):
         self.backend = B.get_backend(backend)
         self.image_shape = tuple(image_shape)
-        self.device = resolve_device(device)
+        self.mesh = mesh
         self.batch_size = int(batch_size)
+        if mesh is None:
+            self._shard_devices = [resolve_device(device)]
+        else:
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both")
+            if mesh.devices is None:
+                raise ValueError("an abstract mesh has no devices to serve on")
+            mult = shd.vision_batch_multiple(mesh)
+            self.batch_size = -(-self.batch_size // mult) * mult
+            self._shard_devices = shd.vision_batch_devices(mesh)
+        self.device = self._shard_devices[0]
         self.max_queue = None if max_queue is None else int(max_queue)
         self.max_age_ms = None if max_age_ms is None else float(max_age_ms)
         # service-time floor per step: a deterministic rate limiter
@@ -155,8 +175,10 @@ class VisionEngine:
         # the tests that mirror the reference's dispatch tests set it; no
         # path of the port does.  0 disables
         self.min_step_s = float(min_step_s)
-        # quantize once at engine build (the paper bakes weights at synthesis)
-        self.params = self.backend.prepare_params(params, self.device)
+        # quantize once at engine build (the paper bakes weights at
+        # synthesis), once a device on a mesh
+        self._shard_params = [self.backend.prepare_params(params, d)
+                              for d in self._shard_devices]
         self._cond = threading.Condition()
         self._queue: collections.deque[VisionRequest] = collections.deque()
         self._results: dict[int, VisionResult] = {}
@@ -193,14 +215,26 @@ class VisionEngine:
             self._step_fn(np.zeros((self.batch_size,) + self.image_shape,
                                    np.float32))
 
+    @property
+    def params(self):
+        """The backend-native params on the first device (the handle the
+        streaming pipeline takes)."""
+        return self._shard_params[0]
+
     def _step_fn(self, batch: np.ndarray) -> torch.Tensor:
-        """One forward over a padded host batch; returns when the device is
-        done (the synchronize stands in for `block_until_ready`)."""
+        """One forward over a padded host batch, split in one shard a device
+        (one shard without a mesh); returns the scores gathered in order on
+        the first device once every device is done (the synchronize stands
+        in for `block_until_ready`)."""
+        devs = self._shard_devices
         with torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device)
-            scores = smallnet.apply(self.params, x, backend=self.backend)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            shards = [torch.from_numpy(part).to(dev)
+                      for part, dev in zip(np.split(batch, len(devs)), devs)]
+            scores = smallnet.apply_sharded(self._shard_params, shards, backend=self.backend)
+            scores = torch.cat([s.to(self.device) for s in scores])
+        for dev in dict.fromkeys(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return scores
 
     # -- request side -------------------------------------------------------
@@ -619,6 +653,7 @@ class VisionEngine:
                     (slots - padded) / slots if slots else 0.0,
                 "queue_hwm": int(self._m_queue.hwm),
                 "device": str(self.device),
+                "mesh_devices": len(self._shard_devices),     # the ones that compute
                 # busy = sum of per-step serving windows; wall spans idle
                 # gaps too, so throughput is reported over busy time (an
                 # engine serving two bursts an hour apart still reports its

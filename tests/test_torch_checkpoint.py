@@ -6,9 +6,12 @@ checkpoint written by either restores bit for bit in the other: a float32
 leaf, a bfloat16 leaf, an int32 `step`, a Trainer-like state (an
 `AdamState` NamedTuple under `['opt']`); a flipped crc or data byte is
 refused.  Plus the reference's six tests of `tests/test_checkpoint.py`, on
-the port.
+the port, and its elastic restore (`tests/test_sharding.py`): a checkpoint
+saved unsharded restores as DTensors on a 4-rank gloo group
+(`restore_checkpoint(shardings=)`, through `restore_latest` too).
 """
 import json
+import pathlib
 import zipfile
 
 import numpy as np
@@ -28,6 +31,7 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.backends import tree_leaves  # noqa: E402
 from repro_torch.optim import AdamConfig, AdamState, adam_init  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
+from test_torch_sharding import init_rank, spawn_ranks  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -161,10 +165,95 @@ def test_a_flipped_byte_is_refused(tmp_path, writer, where):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """A shardings tree must name the leaves of `tree_like`, no more, no
+    fewer."""
     t = _torch_state(_numpy_state())
     save_checkpoint(tmp_path, 1, t)
     with pytest.raises(ValueError, match="shardings"):
-        restore_checkpoint(tmp_path, t, shardings={"w": "anything"})
+        restore_checkpoint(tmp_path, t, shardings={"w": None})
+
+
+# -- the elastic restore: saved unsharded, restored as DTensors on a mesh ------------
+
+def _elastic_worker(rank, world, store, ckpt_dir, out_dir):
+    init_rank(rank, world, store)
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import P, NamedSharding
+    from repro_torch.launch.mesh import make_device_mesh
+    try:
+        like = _torch_state(_numpy_state())
+        out = {}
+        for shape, names, spec_w, spec_m in (((4,), ("data",), P("data", None), P("data")),
+                                              ((2, 2), ("data", "model"), P("data", "model"),
+                                               P("model"))):
+            mesh = make_device_mesh(shape, names)
+            sh = {"params": {"w": NamedSharding(mesh, spec_w), "b": None,
+                             "nested": {"m": NamedSharding(mesh, spec_m)}},
+                  "opt": AdamState(None, {"w": NamedSharding(mesh, spec_w), "b": None,
+                                          "nested": {"m": None}}, None)}
+            r = restore_checkpoint(ckpt_dir, like, shardings=sh)
+            w, m = r["params"]["w"], r["params"]["nested"]["m"]
+            assert isinstance(w, DTensor) and isinstance(m, DTensor)
+            assert isinstance(r["opt"].mu["w"], DTensor)
+            assert not isinstance(r["params"]["b"], DTensor)
+            assert m.dtype == torch.bfloat16 and w.dtype == torch.float32
+            out["x".join(map(str, shape))] = {
+                "w": w.to_local().tolist(), "m": m.to_local().float().tolist(),
+                "w_full": torch.equal(w.full_tensor(), like["params"]["w"]),
+                "m_full": torch.equal(m.full_tensor(), like["params"]["nested"]["m"]),
+                "mu_full": torch.equal(r["opt"].mu["w"].full_tensor(), like["opt"].mu["w"]),
+                "b": torch.equal(r["params"]["b"], like["params"]["b"]),
+                "step": int(r["opt"].step)}
+        (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_elastic_restore_onto_4_ranks(tmp_path):
+    """Saved unsharded by the reference ("mesh A"), restored on 4 ranks as
+    DTensors over a (4,) and a (2,2) mesh ("mesh B"): each rank holds its
+    slice, and the whole tensors equal the saved ones bit for bit."""
+    npp = _numpy_state()
+    jckpt.save_checkpoint(tmp_path / "ck", 1, _jax_state(npp))
+    spawn_ranks(_elastic_worker, 4, tmp_path, str(tmp_path / "ck"), str(tmp_path))
+    w = npp["w"]
+    m = torch.from_numpy(npp["nested"]["m"]).to(torch.bfloat16).float().numpy()
+    for rank in range(4):
+        got = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        d, c = divmod(rank, 2)
+        want = {"4": (w[4 * rank:4 * rank + 4], m[rank:rank + 1]),
+                "2x2": (w[8 * d:8 * d + 8, 4 * c:4 * c + 4], m[2 * c:2 * c + 2])}
+        for mesh, (ww, mm) in want.items():
+            g = got[mesh]
+            np.testing.assert_array_equal(np.asarray(g["w"], np.float32), ww)
+            np.testing.assert_array_equal(np.asarray(g["m"], np.float32), mm)
+            assert g["w_full"] and g["m_full"] and g["mu_full"] and g["b"] and g["step"] == 3
+
+
+def test_restore_latest_passes_shardings_on(tmp_path):
+    """`CheckpointManager.restore_latest(tree_like, shardings)` restores
+    the newest step through the same path, here on a gloo world of one."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import P, NamedSharding
+    from repro_torch.launch.mesh import make_device_mesh
+    t = {"w": torch.arange(32, dtype=torch.float32).reshape(4, 8), "b": torch.ones(3)}
+    mgr = CheckpointManager(tmp_path / "ck")
+    mgr.save_async(1, {k: v * 0 for k, v in t.items()})
+    mgr.wait()
+    mgr.save_async(2, t)
+    mgr.wait()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"))
+        r, step = mgr.restore_latest(t, {"w": NamedSharding(mesh, P("data", "model")),
+                                         "b": NamedSharding(mesh, P())})
+        assert step == 2 and all(isinstance(v, DTensor) for v in r.values())
+        assert torch.equal(r["w"].full_tensor(), t["w"]) and torch.equal(r["b"].to_local(), t["b"])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_save_async_snapshots_before_an_in_place_update(tmp_path):

@@ -36,7 +36,10 @@ new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
        "repro_torch.launch.serve", "repro_torch.analysis.profiler_windows",
        "repro_torch.data.lm_data", "repro_torch.checkpoint.ckpt",
        "repro_torch.runtime.steps", "repro_torch.runtime.fault",
-       "repro_torch.runtime.trainer", "repro_torch.launch.train"]
+       "repro_torch.runtime.trainer", "repro_torch.launch.train",
+       "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
+       "repro_torch.launch.mesh", "repro_torch.launch.lowering",
+       "repro_torch.launch.dryrun"]
 assert all(m in names for m in new), sorted(set(new) - set(names))
 print(len(names), bad)
 """

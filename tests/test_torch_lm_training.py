@@ -23,7 +23,8 @@ Smoke width, float32, params drawn with numpy and handed to both packages
   and moments bit-equal;
 - the reference's Trainer and fault tests of `tests/test_system.py`, on the
   port (loss decreases, watchdog, straggler, `run_with_restarts`), and the
-  `train` launcher with a checkpoint resume.
+  `train` launcher with a checkpoint resume and with `--distributed` (a
+  gloo world of one: the losses of the run without it, bit for bit).
 """
 import dataclasses
 import functools
@@ -305,6 +306,33 @@ def test_train_launcher_resumes_from_its_checkpoints(tmp_path, capsys):
     assert history2 == history[25:]
     for a, b in zip(tree_leaves(state), tree_leaves(state2)):
         assert torch.equal(a, b)
+
+
+def test_train_launcher_distributed_world_of_one_gives_the_same_losses(monkeypatch, capsys):
+    """`--distributed --device cpu` brings up a gloo world of one from
+    torchrun's variables (MASTER_PORT 0: the store takes a free port, so
+    parallel workers do not race for one), trains as without the flag, bit
+    for bit, and destroys the group."""
+    import torch.distributed as dist
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                 ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "0")):
+        monkeypatch.setenv(k, v)
+    argv = ["--device", "cpu", "--steps", "6", "--seq-len", "16", "--global-batch", "8"]
+    state, history = train_launcher.main(argv + ["--distributed"])
+    assert not dist.is_initialized()
+    state2, history2 = train_launcher.main(argv)
+    assert len(history) == 6 and history == history2
+    for a, b in zip(tree_leaves(state), tree_leaves(state2)):
+        assert torch.equal(a, b)
+
+
+def test_train_launcher_distributed_needs_torchrun_variables(monkeypatch):
+    import torch.distributed as dist
+    for k in train_launcher.DIST_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="RANK"):
+        train_launcher.main(["--device", "cpu", "--steps", "1", "--distributed"])
+    assert not dist.is_initialized()
 
 
 def test_trainer_default_device_is_cuda(monkeypatch):
