@@ -191,6 +191,17 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             peak), MFU, tokens/s, peak memory, then one step under
             torch.profiler: the device's busy share, Adam's device time
             against its bytes' bound, the aten ops by device time
+  roofline  (`phase_roofline`; no csrc kernel on it) `analysis.run_roofline`'s
+            smallnet rows on the h100 entry and its FLOP cross-check with
+            the frame on the card; one step of granite-3-2b's published
+            config at the train_lm shape (seq 256, batch 8, params drawn
+            on the card) under FlopCounterMode, equal to
+            `launch.lowering.step_flops` of the same step on the meta
+            device (and to `count_flops` on a one-device mesh); the three
+            FLOP accounts (`analysis.roofline.model_flops`,
+            `lm_train_flops`, the counted); the `Roofline` of that train
+            shape and of the lm phase's decode shape (batch 4, cache 64)
+            beside the median step ms those phases measured
   distributed  (`phase_distributed`) in a child process of its own, rank 0
             of a world of one, with its own time limit (its JSON lines
             passed on, a non-zero exit failing the run): a NCCL group on
@@ -2883,7 +2894,7 @@ def lm_held_bytes(params) -> int:
     return sum(t.numel() * t.element_size() for _, t in lm_leaves(params))
 
 
-def lm_full_width(card: str) -> None:
+def lm_full_width(card: str) -> dict:
     """granite-3-2b at its full config on the card, params drawn there
     (seed 0): (a) two float32 decode steps at batch 2 on the card against
     the same steps on the CPU from the same params, within LM_FULL_TOL;
@@ -2892,7 +2903,8 @@ def lm_full_width(card: str) -> None:
     in bfloat16, twice (the second under the profiler), the tokens equal,
     and once in float32; (c) the same workload served straight from
     `ptq.quantize_tree`'s int8 QuantTensors.  Times beside each engine's
-    bound, the weight bytes a step reads over the HBM rate."""
+    bound, the weight bytes a step reads over the HBM rate.  Returns the
+    first bfloat16 run's measurements."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -2972,26 +2984,29 @@ def lm_full_width(card: str) -> None:
                     step_over_bound=int8_run["step_ms_median"] / bound(q_bytes))
     emit("lm", part="int8", run=int8_run, tokens_equal_to_bf16=agree(int8, bf16),
          quantization_error=errs, card=card)
+    return bf16_run
 
 
-def phase_lm(card: str) -> None:
+def phase_lm(card: str) -> dict:
     """The LM scaffold's serving path on the card: every family at smoke
     width against the CPU, granite-3-2b at full width (float32 against the
     CPU, served in bfloat16, float32 and int8), and the `serve` launcher.
     The path runs no kernel of csrc/: its products are torch.matmul and
-    torch.einsum (the reference has no Pallas kernel there)."""
+    torch.einsum (the reference has no Pallas kernel there).  Returns the
+    full-width bfloat16 run's measurements."""
     import torch
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch import serve
 
     reset_launches()
     lm_smoke_families(card)
-    lm_full_width(card)
+    bf16_run = lm_full_width(card)
     for argv in ([], ["--int8"]):
         done = serve.main(argv)
         expect(len(done) == 16 and all(r.done for r in done), f"lm: serve {argv}")
     expect(launches() == {}, f"lm: csrc kernels launched on the LM path {launches()}")
     torch.cuda.empty_cache()
+    return bf16_run
 
 
 # -- the LM training path --------------------------------------------------------
@@ -3151,7 +3166,7 @@ def train_lm_cut(card: str) -> None:
     del out, params
 
 
-def train_lm_full(card: str) -> None:
+def train_lm_full(card: str) -> dict:
     """(c) granite-3-2b's published config (40 layers, d_model 2048, vocab
     49155; float32 params and Adam moments, bfloat16 compute, remat per
     block) through `Trainer` on the card at the reference launcher's shape
@@ -3161,7 +3176,7 @@ def train_lm_full(card: str) -> None:
     memory; then one more step under torch.profiler: the device's busy
     share of it, the device time of its Adam update (against that
     update's bytes over the HBM rate) and the aten ops with the most
-    device time."""
+    device time.  Returns the median step's ms."""
     import math
     import torch
     from torch.profiler import ProfilerActivity
@@ -3223,14 +3238,16 @@ def train_lm_full(card: str) -> None:
          adam_bound_ms=adam_bytes / HBM_BYTES_PER_S * 1e3,
          aten_self_device_ms=by_op, card=card)
     expect(peak < 80e9, f"train_lm full width: peak memory {peak}")
+    return {"step_ms_median": step_s * 1e3, "bound_ms": bound * 1e3}
 
 
-def phase_train_lm(card: str) -> None:
+def phase_train_lm(card: str) -> dict:
     """The LM training path on the card: the launcher's default run, the
     resume check, a depth-cut full-width step against the CPU, and
     granite-3-2b trained at full width.  No csrc kernel runs on it: the
     reference reaches no `pallas_call` in training (no `custom_vjp`), so
-    products and their gradients are torch.matmul and torch.einsum."""
+    products and their gradients are torch.matmul and torch.einsum.
+    Returns the full-width step's median ms and bound."""
     import torch
     from repro_torch.kernels import launches, reset_launches
 
@@ -3239,10 +3256,96 @@ def phase_train_lm(card: str) -> None:
     train_lm_launcher(card)
     train_lm_resume(card)
     train_lm_cut(card)
-    train_lm_full(card)
+    full = train_lm_full(card)
     expect(launches() == {}, f"train_lm: csrc kernels launched on the LM training path "
                              f"{launches()}")
     torch.cuda.empty_cache()
+    return full
+
+
+# -- the roofline: smallnet rows, the counted FLOPs of a real step, granite's
+# -- rooflines beside the measured steps ------------------------------------------
+
+def roofline_row(r, measured_ms: float) -> dict:
+    """A `Roofline`'s terms beside the step a phase measured."""
+    return {"compute_ms": r.compute_s * 1e3, "memory_ms": r.memory_s * 1e3,
+            "collective_ms": r.collective_s * 1e3, "dominant": r.dominant,
+            "step_time_ms": r.step_time_s * 1e3, "roofline_fraction": r.roofline_fraction,
+            "counted_flops": r.hlo_flops_per_device, "model_flops": r.model_flops_total,
+            "useful_ratio": r.useful_ratio, "bytes": r.bytes_per_device,
+            "measured_step_ms": measured_ms,
+            "measured_over_roofline": measured_ms / (r.step_time_s * 1e3),
+            "measured_fraction": r.model_flops_total / (measured_ms / 1e3) / BF16_FLOPS_PER_S}
+
+
+def phase_roofline(card: str, lm_decode: dict, lm_train: dict) -> None:
+    """(a) `run_roofline.smallnet_rows("h100")` with its FLOP cross-check's
+    frame on the card; (b) one train step of granite-3-2b's published
+    config at the train_lm shape, params drawn on the card (seed 0), under
+    FlopCounterMode: its FLOPs equal `launch.lowering.step_flops` of the
+    same step on the meta device, and `count_flops` on a one-device mesh;
+    (c) the three accounts of that step's FLOPs; (d) the rooflines of that
+    shape and of the lm phase's decode shape beside the median step ms
+    those phases measured (passed on, not measured again).  No csrc kernel
+    launches."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import roofline as R
+    from repro_torch.analysis.run_roofline import smallnet_rows
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import lowering as L
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launches()
+    # (a) the smallnet rows and the cross-check on the card
+    rows, failures = smallnet_rows("h100", frame_device="cuda")
+    expect(not failures, f"roofline: smallnet rows {failures}")
+
+    # (b) the counted FLOPs of one real step against the meta count
+    cfg = get_config(LM_ARCH)
+    train = ShapeSpec("train_lm", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    decode = ShapeSpec("lm_decode", LM_MAX_LEN, LM_BATCH, "decode")
+    params, _ = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = M.synth_batch(cfg, train, device="cuda")
+    with FlopCounterMode(display=False) as counter:
+        _, _, met = L.run_step(cfg, train, params, batch)
+        loss = float(met["loss"])
+    counted = counter.get_total_flops()
+    del params, batch, met
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    meta = L.step_flops(cfg, train)
+    meta_s = time.perf_counter() - t1
+    one = Mesh(("data", "model"), (1, 1))
+    art_train = L.lower_cell(LM_ARCH, train, one)
+    expect(counted > 0 and counted == meta == L.count_flops(art_train),
+           f"roofline: the card's step counts {counted} FLOPs, the meta device {meta}")
+
+    # (c) three accounts of the step's FLOPs
+    accounts = {"model_flops": R.model_flops(cfg, train),
+                "lm_train_flops": lm_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                "counted": counted}
+
+    # (d) the rooflines beside the measured steps
+    r_train = R.roofline_from_cell(art_train)
+    r_decode = R.roofline_from_cell(L.lower_cell(LM_ARCH, decode, one))
+    expect(launches() == {}, f"roofline: csrc kernels launched {launches()}")
+    emit("roofline", smallnet_rows=len(rows), flop_crosscheck="passed on the card",
+         arch=LM_ARCH, train_shape=dataclasses.asdict(train), train_loss=loss,
+         counted_flops_on_card=counted, counted_flops_on_meta=meta, meta_count_s=meta_s,
+         flop_accounts=accounts,
+         train_lm_bound_uses="lm_train_flops (6 N a token + attention, over the bf16 peak)",
+         train_lm_bound_ms=lm_train["bound_ms"],
+         train=roofline_row(r_train, lm_train["step_ms_median"]),
+         decode_shape=dataclasses.asdict(decode),
+         decode=roofline_row(r_decode, lm_decode["step_ms_median"]),
+         decode_bf16_weight_bound_ms=lm_decode["bound_ms"],
+         device=r_train.device, seconds=time.perf_counter() - t0, card=card)
 
 
 # -- distribution: the process group, the compressed all-reduce, the elastic
@@ -3825,8 +3928,9 @@ def run(card: str, kind: str, count: int) -> None:
     runs += phase_router(card, trained_np, q16_wall_qps)
     runs += phase_sweep(card)
     runs += phase_disagg(card)
-    phase_lm(card)
-    phase_train_lm(card)
+    lm_decode = phase_lm(card)
+    lm_train = phase_train_lm(card)
+    phase_roofline(card, lm_decode, lm_train)
     runs += phase_distributed(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)

@@ -11,7 +11,10 @@ It supplies the two halves of an efficiency account:
      and a CPU tensor's device always resolves to the generic "cpu" entry
      (`resolve`).  The "h100" entry is the ONE definition of the card's
      peaks: `chip_smoke.py`'s kernel bounds read it.  A torch process
-     cannot run on a TPU, so the port lists none.
+     cannot run on a TPU, so the port lists none.  An entry may carry
+     `link_bw`, the bytes a second a device sends on its interconnect, the
+     denominator of a roofline's collective term (`analysis/roofline.py`);
+     asking an entry without one for it raises (`DeviceSpec.link`).
 
   2. an ANALYTIC WORKLOAD MODEL (`trunk_workload` / `sweep_workload` /
      `tiler_workload` / `deployed_workload`): model FLOPs and bytes moved
@@ -57,13 +60,16 @@ DTYPE_CLASSES = ("f32", "bf16", "f16", "int8", "int32")
 @dataclasses.dataclass(frozen=True)
 class DeviceSpec:
     """Peak rates for one device: FLOP/s (or integer op/s) per dtype class
-    + HBM/DRAM bandwidth in bytes/s.  `kinds` are substrings matched
-    (case-insensitive) against `torch.cuda.get_device_name` by `lookup`."""
+    + HBM/DRAM bandwidth in bytes/s, and where it has one, the bytes a
+    second it sends on its interconnect (`link_bw`).  `kinds` are
+    substrings matched (case-insensitive) against
+    `torch.cuda.get_device_name` by `lookup`."""
     name: str
     kinds: tuple[str, ...]
     peak_flops: Mapping[str, float]
     mem_bw: float
     source: str
+    link_bw: float | None = None
 
     def peak(self, dtype: str) -> float:
         if dtype not in self.peak_flops:
@@ -72,11 +78,21 @@ class DeviceSpec:
                 f"{dtype!r}; known: {sorted(self.peak_flops)}")
         return self.peak_flops[dtype]
 
+    def link(self) -> float:
+        """The interconnect's bytes a second, one direction; raises for a
+        device without one, as `lookup` raises for an unknown device (a
+        collective term over a guessed link is worse than none)."""
+        if not self.link_bw:
+            raise KeyError(f"device {self.name!r} has no link bandwidth: a "
+                           f"collective term needs one (add link_bw to its "
+                           f"DeviceSpec in analysis/mfu.py)")
+        return self.link_bw
 
-def _spec(name, kinds, f32, bf16, f16, i8, i32, bw, source):
+
+def _spec(name, kinds, f32, bf16, f16, i8, i32, bw, source, link_bw=None):
     return DeviceSpec(name, kinds,
                       {"f32": f32, "bf16": bf16, "f16": f16,
-                       "int8": i8, "int32": i32}, bw, source)
+                       "int8": i8, "int32": i32}, bw, source, link_bw)
 
 
 # Vendor-nameplate peaks where published; derived or estimated rates are
@@ -88,14 +104,19 @@ DEVICE_DB: dict[str, DeviceSpec] = {s.name: s for s in [
           "entry for CPU tensors, where the plain versions run"),
     # int32 runs on an SM's 64 INT32 lanes, one operation a lane a clock,
     # at the 1.98 GHz boost clock behind the data sheet's 67 TFLOP/s fp32
-    # (132 SMs x 128 fp32 lanes x 2 x 1.98e9): derived, not on the sheet
+    # (132 SMs x 128 fp32 lanes x 2 x 1.98e9): derived, not on the sheet.
+    # The link is NVLink 4 within one node (eight cards); a mesh of 256
+    # cards spans nodes, whose network is slower, so a collective term over
+    # this link is a lower bound
     _spec("h100", ("H100",),
           67e12, 989e12, 989e12, 1979e12, 132 * 64 * 1.98e9, 3.35e12,
           "H100 SXM5 datasheet, dense: fp32 67 TFLOP/s on the CUDA cores, "
           "bf16/fp16 989 and int8 1,979 TOP/s on the tensor cores, HBM3 "
           "3.35 TB/s; int32 derived: 132 SMs x 64 INT32 lanes x 1.98 GHz "
           "boost = 16.7 Tops/s (the reference's 33.5e12 is an unsourced "
-          "estimate)"),
+          "estimate); link: NVLink 4, 900 GB/s total a GPU, 450 GB/s a "
+          "direction (within a node)",
+          link_bw=450e9),
 ]}
 
 

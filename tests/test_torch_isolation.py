@@ -39,7 +39,8 @@ new = ["repro_torch.core.ptq", "repro_torch.kernels.conv2d.ops",
        "repro_torch.runtime.trainer", "repro_torch.launch.train",
        "repro_torch.distributed.sharding", "repro_torch.distributed.compression",
        "repro_torch.launch.mesh", "repro_torch.launch.lowering",
-       "repro_torch.launch.dryrun"]
+       "repro_torch.launch.dryrun", "repro_torch.analysis.roofline",
+       "repro_torch.analysis.run_roofline"]
 assert all(m in names for m in new), sorted(set(new) - set(names))
 print(len(names), bad)
 """
