@@ -19,10 +19,13 @@ read) + None check per instrumentation site until `trace.enable()` turns
 it on; enabling installs a process-wide `Tracer` whose finished spans land
 in a bounded `recorder.FlightRecorder` ring.
 
-The opt-in torch.profiler bridge (`profile_device_steps()`) wraps every
-engine device step in `torch.profiler.record_function`, so a
-`torch.profiler` trace of the card shows the same step boundaries the spans
-do.  (Port of `repro.obs.trace`; only that bridge changed.)
+A call whose time splits into consecutive phases (an engine step's
+upload, forward and wait; a frame sweep's masks, trunk and head) records
+them with `Phases`: each phase a child span of the call's span, built
+with `Tracer.emit` from clock reads taken at the phase boundaries.
+
+Port of `repro.obs.trace`, less its profiler bridge and with `Phases`
+added.
 """
 from __future__ import annotations
 
@@ -145,13 +148,6 @@ class Tracer:
         self._record(s)
         return s
 
-    def point(self, name: str, trace_id: str, status: str = "ok", *,
-              parent: Span | None = None, **tags) -> Span:
-        """A zero-duration event span (a dispatch decision, an
-        at-the-door shed): started and ended at the same instant."""
-        return self.end(self.start(name, trace_id, parent=parent, **tags),
-                        status)
-
     @contextlib.contextmanager
     def span(self, name: str, trace_id: str, *,
              parent: Span | None = None, **tags):
@@ -162,6 +158,32 @@ class Tracer:
             self.end(s, "error")
             raise
         self.end(s)
+
+
+class Phases:
+    """Consecutive child spans of `parent` that split a call's time:
+    the phase `name` runs from `t_start` (default now) until `to()` names
+    the next one or `end()` closes the last.  A name may come back (a
+    frame's masks between its trunk's stages); readers sum a parent's
+    spans of one name.  Each boundary is one clock read and one
+    `Tracer.emit`; only a traced call makes one."""
+    __slots__ = ("_tr", "_parent", "_name", "_t")
+
+    def __init__(self, tr: Tracer, parent: Span, name: str,
+                 t_start: float | None = None):
+        self._tr, self._parent, self._name = tr, parent, name
+        self._t = time.perf_counter() if t_start is None else t_start
+
+    def to(self, name: str) -> None:
+        self._t = self.end()
+        self._name = name
+
+    def end(self) -> float:
+        """End the running phase; returns the clock read that ended it."""
+        t = time.perf_counter()
+        self._tr.emit(self._name, self._parent.trace_id, self._t, t,
+                      parent=self._parent)
+        return t
 
 
 # -- the process-wide switch --------------------------------------------------
@@ -191,26 +213,3 @@ def get() -> Tracer | None:
     instrumentation site is `tr = trace.get()` + `if tr is not None` — the
     whole cost of the subsystem when disabled."""
     return _TRACER
-
-
-# -- torch.profiler bridge ----------------------------------------------------
-
-_PROFILE_STEPS = False
-
-
-def profile_device_steps(on: bool = True) -> None:
-    """Opt in to wrapping every engine device step in a
-    `torch.profiler.record_function` range so spans and profiler timelines
-    line up.  Off by default: a range costs a little even without a live
-    profiler session."""
-    global _PROFILE_STEPS
-    _PROFILE_STEPS = bool(on)
-
-
-def device_step_annotation(name: str):
-    """Context manager for the engine's device step: a profiler range when
-    `profile_device_steps()` is on, a nullcontext otherwise."""
-    if _PROFILE_STEPS:
-        import torch.profiler
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()

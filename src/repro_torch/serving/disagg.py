@@ -472,8 +472,7 @@ class StageEngine:
             self._in_flight = 1
         t0 = time.perf_counter()
         try:
-            with T.device_step_annotation(f"stage_step/{self.name}"):
-                value = self._compute(req.payload)
+            value = self._compute(req.payload)
         except Exception as e:
             with self._cond:
                 self._in_flight = 0

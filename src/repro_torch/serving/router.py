@@ -287,11 +287,13 @@ class ReplicaRouter:
         `t_submit` lets an open-loop replay harness stamp the request with
         its scheduled arrival time (the engine deadline then counts from
         intended arrival, not generator lag).  With tracing on, every
-        routing decision emits a point span "dispatch" — chosen replica,
-        policy, projected wait — nested under `parent_span` when given, so
-        a frame's waterfall shows WHERE it was sent and a door-shed request
-        carries the span where it died."""
+        call emits a span "dispatch" over the whole call, from entry (so a
+        wait for the lock counts) to return — chosen replica, policy —
+        nested under `parent_span` when given, so a frame's waterfall
+        shows WHERE it was sent and a door-shed request carries the span
+        where it died (status "shed:<reason>")."""
         tr = T.get()
+        t_in = time.perf_counter() if tr is not None else 0.0
         with self._lock:
             dl = deadline_ms if deadline_ms is not None else self.slo_ms
             i, shed = self._pick(dl)   # may raise FleetExhaustedError:
@@ -301,28 +303,24 @@ class ReplicaRouter:
             if dl is not None:
                 self._deadline_total += 1
             if shed is not None:
-                if tr is not None:
-                    tr.point("dispatch", (parent_span.trace_id
-                                          if parent_span is not None
-                                          else f"rreq-{self._id}-{uid}"),
-                             f"shed:{shed}", parent=parent_span,
-                             uid=uid, policy=self.policy, router=self._id)
                 self._shed_uid_locked(uid, shed)
-                return uid
-            if tr is not None:
-                tr.point("dispatch", (parent_span.trace_id
-                                      if parent_span is not None
-                                      else f"rreq-{self._id}-{uid}"),
-                         parent=parent_span, uid=uid, replica=i,
-                         policy=self.policy, router=self._id)
-            self._assignment[uid] = i
-            now = (time.perf_counter() if t_submit is None
-                   else float(t_submit))
-            self._pending[i].append(_Pending(
-                uid=uid, image=np.asarray(image, np.float32),
-                t_submit=now, deadline_ms=dl, parent_span=parent_span))
-            self._lock.notify_all()
-            return uid
+            else:
+                self._assignment[uid] = i
+                now = (time.perf_counter() if t_submit is None
+                       else float(t_submit))
+                self._pending[i].append(_Pending(
+                    uid=uid, image=np.asarray(image, np.float32),
+                    t_submit=now, deadline_ms=dl, parent_span=parent_span))
+                self._lock.notify_all()
+        if tr is not None:
+            tid = (parent_span.trace_id if parent_span is not None
+                   else f"rreq-{self._id}-{uid}")
+            where = {} if shed is not None else {"replica": i}
+            tr.emit("dispatch", tid, t_in, time.perf_counter(),
+                    "ok" if shed is None else f"shed:{shed}",
+                    parent=parent_span, uid=uid, policy=self.policy,
+                    router=self._id, **where)
+        return uid
 
     def submit_many(self, images: Iterable[np.ndarray], *,
                     deadline_ms: float | None = None,
@@ -348,7 +346,12 @@ class ReplicaRouter:
         requests that did NOT complete (empty when healthy); on failure the
         replica is marked dead and partial results are still harvested.
         Engine-side sheds (expired deadline, admission bound) are recorded
-        as fleet sheds, NOT failed over — their deadline already lapsed."""
+        as fleet sheds, NOT failed over — their deadline already lapsed.
+        With tracing on, a lane drained emits one "drain" span over the
+        call (replica, lane length); the engine's step spans run inside it,
+        on this thread."""
+        tr = T.get()
+        t_in = time.perf_counter() if tr is not None else 0.0
         eng = self.replicas[i]
         with self._lock:              # vs concurrent submit() to this lane
             lane, self._pending[i] = self._pending[i], []
@@ -406,6 +409,10 @@ class ReplicaRouter:
             if error is not None:
                 self._errors[i] = error
             self._lock.notify_all()
+        if tr is not None:
+            tr.emit("drain", f"drain-{self._id}", t_in, time.perf_counter(),
+                    "ok" if error is None else "error", replica=i,
+                    lane=len(lane))
         # unserved from the LANE (not the submitted map): a fault inside
         # eng.submit itself must not drop the never-submitted remainder
         return [p for p in lane if p.uid not in done]

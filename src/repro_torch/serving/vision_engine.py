@@ -221,17 +221,25 @@ class VisionEngine:
         streaming pipeline takes)."""
         return self._shard_params[0]
 
-    def _step_fn(self, batch: np.ndarray) -> torch.Tensor:
+    def _step_fn(self, batch: np.ndarray,
+                 phases: T.Phases | None = None) -> torch.Tensor:
         """One forward over a padded host batch, split in one shard a device
         (one shard without a mesh); returns the scores gathered in order on
         the first device once every device is done (the synchronize stands
-        in for `block_until_ready`)."""
+        in for `block_until_ready`).  A traced step passes its `phases`,
+        which this moves from the upload to "forward" (the launches and the
+        gather) and to "device_wait" (the synchronize), which the caller
+        ends."""
         devs = self._shard_devices
         with torch.inference_mode():
             shards = [torch.from_numpy(part).to(dev)
                       for part, dev in zip(np.split(batch, len(devs)), devs)]
+            if phases is not None:
+                phases.to("forward")
             scores = smallnet.apply_sharded(self._shard_params, shards, backend=self.backend)
             scores = torch.cat([s.to(self.device) for s in scores])
+        if phases is not None:
+            phases.to("device_wait")
         for dev in dict.fromkeys(devs):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -356,17 +364,24 @@ class VisionEngine:
         if bf is not None:
             tr.end(bf, n_formed=len(reqs))
         t0 = time.perf_counter()
-        ds = (tr.start("device_step", f"step-{self._id}-{batch_idx}",
-                       batch_index=batch_idx, engine=self._id,
-                       n_real=len(reqs),
-                       padded=self.batch_size - len(reqs))
-              if tr is not None else None)
+        ds = ph = None
+        if tr is not None:
+            # the step's phases: "upload" (the padded batch, its rows, the
+            # copy to the card), then "forward" and "device_wait", which
+            # `_step_fn` moves to
+            ds = tr.start("device_step", f"step-{self._id}-{batch_idx}",
+                          batch_index=batch_idx, engine=self._id,
+                          n_real=len(reqs),
+                          padded=self.batch_size - len(reqs))
+            ph = T.Phases(tr, ds, "upload", ds.t_start)
         try:
             batch = np.zeros((self.batch_size,) + self.image_shape, np.float32)
             for i, r in enumerate(reqs):
                 batch[i] = r.image
-            with T.device_step_annotation(f"vision_step/{self.backend.name}"):
-                scores = self._step_fn(batch)
+            # untraced, the step is called as `_step_fn(batch)`, the form
+            # a stand-in step (a test's, a fault's) takes
+            scores = (self._step_fn(batch) if ph is None
+                      else self._step_fn(batch, ph))
         except Exception:
             # a faulted step sheds its batch (reason "fault") rather than
             # losing it: submitted == served + shed + pending must survive
@@ -381,12 +396,12 @@ class VisionEngine:
                     self._shed_locked(r.uid, "fault", r.t_submit, now,
                                       parent_span=r.parent_span, queued=True)
             raise
-        t_done = time.perf_counter()
+        t_done = time.perf_counter() if ph is None else ph.end()
         if self.min_step_s > 0.0 and t_done - t0 < self.min_step_s:
             time.sleep(self.min_step_s - (t_done - t0))
             t_done = time.perf_counter()     # the floor IS the service time
         if ds is not None:
-            tr.end(ds)
+            tr.end_at(ds, t_done)
         scores_cpu = scores.cpu()                   # one copy back per step
         preds = smallnet.predict(scores_cpu).numpy()
         scores_np = scores_cpu.numpy()
@@ -410,6 +425,11 @@ class VisionEngine:
             self._in_flight = 0
             self._cond.notify_all()
         if tr is not None:
+            # "finish": the copy back, predict and the results published,
+            # from the device step's end; it ends before the request spans
+            # below, so the tracer's own work is not in it
+            tr.emit("finish", ds.trace_id, ds.t_end, time.perf_counter(),
+                    batch_index=batch_idx, engine=self._id)
             # materialize the batch's request/queue_wait spans AFTER the
             # waiters are released, from timestamps the engine recorded
             # anyway (t_submit, batch formation, t_done): the traced submit

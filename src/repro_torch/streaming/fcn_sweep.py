@@ -69,9 +69,11 @@ import torch
 from repro_torch.core import backends as B
 from repro_torch.core import smallnet
 from repro_torch.core.device import as_device_tensor
+from repro_torch.kernels import launches
 from repro_torch.kernels.frame_trunk.ops import pool_mix as _pool_mix
 from repro_torch.kernels.frame_trunk.ops import pool_quadrants as _pool_quadrants
 from repro_torch.kernels.quant_matmul.ops import window_gather_index
+from repro_torch.obs import trace as T
 from repro_torch.streaming.sources import Frame
 from repro_torch.streaming.tiler import Tiler, tile_positions
 
@@ -89,7 +91,7 @@ _TOP, _BOT = (1, 0), (0, 1)
 _ALL = (1, 1)
 
 
-def _sweep_stage(be: B.Backend, quad, w, b):
+def _sweep_stage(be: B.Backend, quad, w, b, phases: T.Phases | None = None):
     """One conv->activation->pool stage over the role-map quad.
 
     Role bookkeeping: for a patch of side N at this stage, conv output row
@@ -103,8 +105,13 @@ def _sweep_stage(be: B.Backend, quad, w, b):
     `kernels/frame_trunk/ops.frame_trunk_quad_plain` writes out the same
     two stages and association order on plain word ops: a change to one
     must be made to the other.
+
+    A traced sweep's `phases` runs "masks" over the eight masked weights
+    and "trunk" over the stage's launches.
     """
     I, Bm, R, C = quad
+    if phases is not None:
+        phases.to("masks")
     zb = torch.zeros_like(b)
     w_top = be.mask_conv_weight(w, _mask(_TOP, _ALL))
     w_bot = be.mask_conv_weight(w, _mask(_BOT, _ALL))
@@ -114,6 +121,8 @@ def _sweep_stage(be: B.Backend, quad, w, b):
     w_01 = be.mask_conv_weight(w, _mask(_TOP, _BOT))
     w_10 = be.mask_conv_weight(w, _mask(_BOT, _TOP))
     w_11 = be.mask_conv_weight(w, _mask(_BOT, _BOT))
+    if phases is not None:
+        phases.to("trunk")
 
     # single-source role maps: one fused conv+activation launch each
     s_ii = be.fused_conv_act(I, w, b)                    # all taps interior
@@ -149,7 +158,7 @@ def _sweep_stage(be: B.Backend, quad, w, b):
 
 
 def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
-                megakernel: bool | None = None):
+                megakernel: bool | None = None, phases: T.Phases | None = None):
     """Both conv stages of the sweep over one (1,H,W,1) float frame batch:
     the level-2 role-map quad (I, B, R, C), each (1, H/4, W/4) words or
     (1, H/4, W/4, 1) floats.
@@ -169,8 +178,8 @@ def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
                 f"multiple-of-4 frames)")
     x = be.ingest(frames)
     quad = (x, x, x, x)      # pixels are role-independent at level 0
-    quad = _sweep_stage(be, quad, p["conv1"]["w"], p["conv1"]["b"])
-    return _sweep_stage(be, quad, p["conv2"]["w"], p["conv2"]["b"])
+    quad = _sweep_stage(be, quad, p["conv1"]["w"], p["conv1"]["b"], phases)
+    return _sweep_stage(be, quad, p["conv2"]["w"], p["conv2"]["b"], phases)
 
 
 def _check_saturation(be: B.Backend) -> None:
@@ -245,11 +254,19 @@ def _head_scores(be: B.Backend, p: dict, quad, patch: int,
 
 def _sweep(be: B.Backend, params: Any, frame: torch.Tensor, patch: int,
            positions: tuple[tuple[int, int], ...],
-           megakernel: bool | None) -> torch.Tensor:
+           megakernel: bool | None, phases: T.Phases | None = None) -> torch.Tensor:
     """params + (1,H,W,1) float frame -> (n_windows, 10) scores on the
-    frame's device."""
+    frame's device.  A traced sweep's `phases` runs "masks" over the
+    params' preparation, "trunk" and "masks" through `_trunk_quad`, and
+    "head" over the head."""
+    if phases is not None:
+        phases.to("masks")
     p = be.prepare_params(params, frame.device)
-    quad = _trunk_quad(be, p, frame, megakernel)
+    if phases is not None:
+        phases.to("trunk")
+    quad = _trunk_quad(be, p, frame, megakernel, phases)
+    if phases is not None:
+        phases.to("head")
     return _head_scores(be, p, quad, patch, positions, fused=megakernel is not False)
 
 
@@ -368,10 +385,26 @@ class FcnSweep(Tiler):
 
     def score(self, params: Any, frames, *,
               backend: str | B.Backend = "fixed_cuda",
-              device: torch.device | str | None = None) -> np.ndarray:
+              device: torch.device | str | None = None,
+              parent_span: T.Span | None = None) -> np.ndarray:
         """One full-frame trunk pass + windowed dense head on `device`
         (default "cuda"): (1, H, W, 1) frame -> (n_windows, 10)
-        backend-native scores, in `positions` order."""
+        backend-native scores, in `positions` order.
+
+        With tracing on, the call is one "score" span (under `parent_span`,
+        the pipeline's frame, when given), tagged with the csrc `launches`
+        it made (exact while one thread launches at a time), and split into
+        children: "trunk" (the frame's upload and the trunk's launches),
+        "masks" (the params' preparation and each stage's masked weights),
+        "head" and "device_wait" (the copy back, which waits for the
+        card).  Masks and trunk come in several spans a frame."""
+        tr = T.get()
+        ph = None
+        if tr is not None:
+            n0 = sum(launches().values())
+            sp = tr.start("score", parent_span.trace_id if parent_span is not None
+                          else "score", parent=parent_span)
+            ph = T.Phases(tr, sp, "trunk", sp.t_start)
         be = B.get_backend(backend)
         _check_saturation(be)
         frames = as_device_tensor(frames, device, dtype=torch.float32)
@@ -383,8 +416,15 @@ class FcnSweep(Tiler):
                 f"per-frame device program), got batch {frames.shape[0]}")
         pos = tuple(self.positions((frames.shape[1], frames.shape[2])))
         with torch.inference_mode():
-            scores = _sweep(be, params, frames, self.patch, pos, self.megakernel)
-        return scores.cpu().numpy()
+            scores = _sweep(be, params, frames, self.patch, pos, self.megakernel, ph)
+        if ph is None:
+            return scores.cpu().numpy()
+        ph.to("device_wait")
+        out = scores.cpu().numpy()
+        t_end = ph.end()
+        sp.tags["launches"] = sum(launches().values()) - n0
+        tr.end_at(sp, t_end)
+        return out
 
     def _masses(self, tiles: np.ndarray,
                 positions: Sequence[tuple[int, int]]) -> np.ndarray:

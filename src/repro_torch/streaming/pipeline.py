@@ -263,8 +263,12 @@ class StreamingPipeline:
             self._stage_hist["tile"].observe(item.stage_s["tile"])
             await self._admit(q_infer, "tile", item)
 
-    def _sweep_frame(self, frames: np.ndarray) -> np.ndarray:
+    def _sweep_frame(self, frames: np.ndarray, span=None) -> np.ndarray:
         eng = self.engine
+        if span is not None:           # a traced frame: its sweep's spans nest under it
+            return self.tiler.score(eng.params, frames, backend=eng.backend,
+                                    device=getattr(eng, "device", None),
+                                    parent_span=span)
         return self.tiler.score(eng.params, frames, backend=eng.backend,
                                 device=getattr(eng, "device", None))
 
@@ -290,7 +294,7 @@ class StreamingPipeline:
                     return None
                 raise
         if self.sweep:
-            return self._sweep_frame(item.tiles)
+            return self._sweep_frame(item.tiles, item.span)
         if self._serve_takes_span and item.span is not None:
             res = eng.serve(list(item.tiles), parent_span=item.span)
         else:

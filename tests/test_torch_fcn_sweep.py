@@ -33,6 +33,8 @@ from repro_torch.core import smallnet as tsn  # noqa: E402
 from repro_torch.core.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.quant_matmul import ops as D  # noqa: E402
+from repro_torch.obs import recorder as R  # noqa: E402
+from repro_torch.obs import trace as T  # noqa: E402
 from repro_torch.streaming import fcn_sweep as tfs  # noqa: E402
 from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler  # noqa: E402
 
@@ -323,3 +325,43 @@ def test_sweep_head_route_follows_megakernel(frame112):
         with pytest.raises(ValueError, match="outside"):
             D.fixed_window_head([z] * 4, torch.tensor([0, y], dtype=torch.int32),
                                 torch.tensor([0, x], dtype=torch.int32), w, b)
+
+
+@pytest.mark.parametrize("megakernel, phases", [
+    (False, ["trunk", "masks", "trunk", "masks", "trunk", "masks", "trunk", "head",
+             "device_wait"]),
+    (None, ["trunk", "masks", "trunk", "head", "device_wait"])])
+def test_traced_score_spans_split_the_call(frame112, megakernel, phases):
+    """A traced sweep is one score span under the caller's, tagged with its
+    launches, whose children follow one another and cover it; the words
+    are the untraced call's."""
+    params = params_from_jax(numpy_params(), "cpu")
+    sw = FcnSweep(stride=8, megakernel=megakernel)
+    fb, _ = sw.extract(frame112)
+    want = sw.score(params, fb, backend="fixed", device="cpu")
+    tr = T.enable(capacity=1024)
+    try:
+        frame = tr.start("frame", "frame-0")
+        got = sw.score(params, fb, backend="fixed", device="cpu", parent_span=frame)
+        tr.end(frame, "served")
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+    np.testing.assert_array_equal(got, want)
+    assert R.reconcile(spans, frames_served=1, frames_dropped=0) == []
+    (score,) = [s for s in spans if s.name == "score"]
+    assert score.parent_id == frame.span_id and score.trace_id == "frame-0"
+    assert score.tags["launches"] == 0                 # plain versions on the CPU launch nothing
+    kids = sorted((s for s in spans if s.parent_id == score.span_id), key=lambda s: s.t_start)
+    assert [k.name for k in kids] == phases
+    assert kids[0].t_start == score.t_start and kids[-1].t_end == score.t_end
+    assert all(a.t_end == b.t_start for a, b in zip(kids, kids[1:]))
+
+
+def test_untraced_score_records_nothing(frame112):
+    tr = T.enable(capacity=64)
+    T.disable()
+    sw = FcnSweep(stride=8, megakernel=False)
+    fb, _ = sw.extract(frame112)
+    sw.score(params_from_jax(numpy_params(), "cpu"), fb, backend="fixed", device="cpu")
+    assert len(tr.recorder) == 0

@@ -12,6 +12,7 @@ sleep, then zero scores) stands in where a test needs a known service
 rate, as in the reference's tests.
 """
 import collections
+import threading
 import time
 
 import numpy as np
@@ -430,16 +431,77 @@ def test_threaded_fleet_under_open_loop_replay(setup, backend):
 
 
 def test_dispatch_emits_point_spans(setup):
+    """One dispatch span a submit, over the whole call."""
     tr = T.enable(capacity=1024)
     try:
         router = ReplicaRouter([_engine(setup)], policy="slo", slo_ms=50.0)
-        first, second = router.submit(IMG), router.submit(IMG)   # second: door shed
+        t0 = time.perf_counter()
+        first = router.submit(IMG)
+        t1 = time.perf_counter()
+        second = router.submit(IMG)                              # a door shed
+        t2 = time.perf_counter()
         router.run()
         spans = [s for s in tr.recorder.spans() if s.name == "dispatch"]
     finally:
         T.disable()
     assert [s.status for s in spans] == ["ok", "shed:slo_wait"]
-    assert all(s.t_end >= s.t_start for s in spans)
+    assert t0 <= spans[0].t_start < spans[0].t_end <= t1
+    assert t1 <= spans[1].t_start < spans[1].t_end <= t2
     assert spans[0].tags["replica"] == 0 and spans[1].tags["uid"] == second
     assert router.pop_shed([second]) == {second: "slo_wait"}
     assert first in router.pop_results([first])
+
+
+def test_dispatch_span_counts_the_wait_for_the_lock(setup):
+    router = ReplicaRouter([_engine(setup)], policy="round_robin")
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with router._lock:
+            held.set()
+            release.wait(5)
+    th = threading.Thread(target=hold)
+    th.start()
+    held.wait(5)
+    tr = T.enable(capacity=64)
+    try:
+        threading.Timer(0.05, release.set).start()
+        t0 = time.perf_counter()
+        router.submit(IMG)
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+        release.set()
+        th.join()
+    (d,) = spans
+    assert d.name == "dispatch" and d.t_start - t0 < 0.01 and d.duration_s >= 0.04
+
+
+def test_drain_span_contains_the_steps_it_ran(setup):
+    tr = T.enable(capacity=4096)
+    try:
+        router = ReplicaRouter([_engine(setup, batch_size=4), _engine(setup, batch_size=4)],
+                               policy="round_robin")
+        router.submit_many([IMG] * 10)
+        assert router.run() == 10
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+    drains = {s.tags["replica"]: s for s in spans if s.name == "drain"}
+    assert sorted(drains) == [0, 1] and sum(d.tags["lane"] for d in drains.values()) == 10
+    assert all(d.status == "ok" for d in drains.values())
+    ran = collections.Counter()
+    for s in spans:
+        if s.name in ("batch_form", "device_step", "finish"):
+            i = next(i for i, e in enumerate(router.replicas) if e._id == s.tags["engine"])
+            assert drains[i].t_start <= s.t_start and s.t_end <= drains[i].t_end, s
+            ran[s.name] += 1
+    assert ran["device_step"] == ran["finish"] == 4          # 5 a lane, 4 a step
+
+
+def test_untraced_fleet_records_nothing(setup):
+    tr = T.enable(capacity=64)
+    T.disable()
+    router = ReplicaRouter([_engine(setup, batch_size=4)], policy="slo", slo_ms=50.0)
+    router.submit_many([IMG] * 3)
+    assert router.run() == 3 and len(tr.recorder) == 0

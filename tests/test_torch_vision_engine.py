@@ -132,18 +132,55 @@ def test_faulted_step_sheds_and_keeps_the_ledger(setup):
 def test_traced_run_reconciles_spans_with_the_ledger(setup):
     params, images = setup
     tr = T.enable(capacity=4096)
-    T.profile_device_steps(True)
     try:
         eng = _engine(params, max_queue=12, warmup=False)
         eng.serve(list(images[:16]))                   # 12 served, 4 shed
         spans = tr.recorder.spans()
     finally:
-        T.profile_device_steps(False)
         T.disable()
     st = eng.stats()
     assert st["n"] == 12 and st["shed"] == 4
     assert R.reconcile(spans, served=st["n"], shed=st["shed"], root_name="request") == []
     assert any(s.name == "device_step" for s in spans)
+
+
+def test_traced_step_splits_into_phases(setup):
+    """A traced step's upload, forward and device_wait follow one another
+    inside its device_step and cover it; finish follows it."""
+    params, images = setup
+    tr = T.enable(capacity=4096)
+    try:
+        eng = _engine(params, warmup=False)
+        eng.submit_many(list(images[:10]))
+        assert eng.run() == 10                         # two steps of 8
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+    assert R.reconcile(spans, served=10, shed=0, root_name="request") == []
+    steps = [s for s in spans if s.name == "device_step"]
+    assert len(steps) == 2
+    for ds in steps:
+        kids = sorted((s for s in spans if s.parent_id == ds.span_id), key=lambda s: s.t_start)
+        assert [k.name for k in kids] == ["upload", "forward", "device_wait"]
+        assert kids[0].t_start == ds.t_start and kids[-1].t_end == ds.t_end
+        assert all(a.t_end == b.t_start for a, b in zip(kids, kids[1:]))
+        assert sum(k.duration_s for k in kids) >= ds.duration_s - 1e-6
+        finish = [s for s in spans if s.name == "finish" and s.trace_id == ds.trace_id]
+        assert len(finish) == 1 and finish[0].t_start == ds.t_end
+        assert finish[0].t_end > finish[0].t_start and finish[0].parent_id is None
+
+
+def test_untraced_step_records_nothing(setup):
+    """With the tracer off a step passes no phases and records no span."""
+    params, images = setup
+    tr = T.enable(capacity=64)
+    T.disable()
+    eng = _engine(params, warmup=False)
+    calls, inner = [], eng._step_fn
+    eng._step_fn = lambda batch: calls.append(len(batch)) or inner(batch)
+    eng.submit_many(list(images[:3]))
+    assert eng.run() == 3
+    assert calls == [8] and len(tr.recorder) == 0
 
 
 def test_engine_without_a_device_needs_cuda(setup):
