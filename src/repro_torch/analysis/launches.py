@@ -33,6 +33,7 @@ KERNEL_LAUNCHES: dict[str, str] = {
     "conv2d_tile_kernel": "conv2d",
     "conv2d_direct_kernel": "conv2d",
     "float_smallnet_kernel": "float_smallnet",
+    "float_sweep_stage_kernel": "float_sweep_stage",
     "maxpool2d_kernel": "maxpool2d",
     "sigmoid_pla_kernel": "sigmoid_pla",
     "qmm_dp4a_kernel": "quant_matmul",
@@ -80,12 +81,23 @@ class LostWindow(RuntimeError):
     wrappers launched kernels: the measurement was lost, not the launches."""
 
 
+class LaunchMismatch(RuntimeError):
+    """The profiler's count of the port's kernels over a call (`seen`)
+    differs from the wrappers' (`counted`)."""
+
+    def __init__(self, seen: dict[str, int], counted: dict[str, int], n_events: int):
+        super().__init__(f"kernel launches seen by the profiler {seen} differ from the "
+                         f"wrappers' counts {counted} ({n_events} device events)")
+        self.seen, self.counted = seen, counted
+
+
 def count_launches(fn: Callable, *args: Any, **kwargs: Any) -> dict[str, int]:
     """Per launch-count name, the port's kernels the card ran during one
     call of `fn(*args, **kwargs)`, counted by the profiler.  Raises if that
     count differs from the wrappers' `LAUNCHES` over the same call (so no
-    other thread may launch the port's kernels meanwhile); `LostWindow`
-    where the profiler saw no device activity at all."""
+    other thread may launch the port's kernels meanwhile) with
+    `LaunchMismatch`; `LostWindow` where the profiler saw no device
+    activity at all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -107,7 +119,5 @@ def count_launches(fn: Callable, *args: Any, **kwargs: Any) -> dict[str, int]:
         raise LostWindow(f"the profiler saw no device activity over a call that "
                          f"launched {counted}")
     if seen != counted:
-        raise RuntimeError(
-            f"kernel launches seen by the profiler {seen} differ from the "
-            f"wrappers' counts {counted} ({len(names)} device events)")
+        raise LaunchMismatch(seen, counted, len(names))
     return seen

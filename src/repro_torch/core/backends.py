@@ -11,7 +11,7 @@ a backend supplies the five layer primitives
 
 plus the hooks `ingest`, `flatten`, `fused_conv_act`, `fused_conv_act_pool`,
 `accumulate`, `mask_conv_weight`, `net_scores`, `frame_trunk`,
-`window_head`, `prepare_params` and `params_native`.  Parameters are a
+`sweep_stage`, `window_head`, `prepare_params` and `params_native`.  Parameters are a
 dict of dicts of tensors with the reference's layouts: conv weights
 (2,2,1,1) HWIO, conv bias (1,), dense (49,10) and (10,); the `int8`
 backend's weights are `ptq.QuantTensor`s.
@@ -27,16 +27,18 @@ Registered backends (the reference's name in brackets where it differs):
     cuda        [pallas] the hand-written float kernels: a served step is
                 one whole-net launch (`net_scores`, `float_smallnet`: both
                 convs, pools, the dense layer and the exact sigmoid) where
-                the kernel takes the images; other batches, and the frame
-                sweep, take the stages: the conv with its fused sigmoid
-                epilogue and the max pool (`kernels/conv2d`,
-                `kernels/maxpool2d`), the dense product, and
-                `torch.sigmoid` after it, outside any kernel as in the
+                the kernel takes the images; a swept frame's trunk is two
+                launches, one a stage (`sweep_stage`, `float_sweep_stage`);
+                other batches, and the composed sweep, take the stages:
+                the conv with its fused sigmoid epilogue and the max pool
+                (`kernels/conv2d`, `kernels/maxpool2d`), the dense product,
+                and `torch.sigmoid` after it, outside any kernel as in the
                 reference; matches `ref`
     cuda_plan   [pallas_plan] the same with PLAN: one whole-net launch a
-                served step; the stages are the conv with the fused PLAN
-                epilogue, the max pool, and the `sigmoid_pla` kernel after
-                the dense layer; matches `plan`
+                served step, two a swept frame's trunk; the stages are the
+                conv with the fused PLAN epilogue, the max pool, and the
+                `sigmoid_pla` kernel after the dense layer (and the sweep
+                head's); matches `plan`
     fixed       the bit-faithful Qm.n two's-complement datapath (paper
                 §III-B) in PyTorch word ops — the plain versions of the
                 kernels, on whatever device the tensors live on
@@ -65,7 +67,10 @@ frame in one step: `fixed` runs the untiled plain version
 return None, as the reference's `FixedBackend` does, where the trunk
 cannot tile: a batch other than 1, an extent that is not a multiple of 4
 or is below 4, or a saturating config.  The float and int8 backends have
-no `frame_trunk`.  That is routing to the composed stages, not a fallback:
+no `frame_trunk`.  `sweep_stage` is one stage of the frame sweep's trunk
+in one step: `cuda` and `cuda_plan` launch `csrc/float_sweep.cu` (its
+plain version on CPU tensors) for one frame whose maps have even
+extents.  That is routing to the composed stages, not a fallback:
 on valid geometry a build or launch failure raises.  The same holds for
 `net_scores` (the whole net, for the images its kernel takes: `fixed_cuda`,
 `cuda` and `cuda_plan`) and `window_head` (the sweep's head, `fixed_cuda`
@@ -82,7 +87,7 @@ from repro_torch.core import fixed_point as fxp
 from repro_torch.core import ptq
 from repro_torch.core.device import as_device_tensor
 from repro_torch.kernels.conv2d.ops import (conv2d, conv2d_plain, float_smallnet,
-                                            float_smallnet_fits)
+                                            float_smallnet_fits, float_sweep_stage)
 from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain,
                                                 fixed_maxpool2x2,
                                                 fixed_maxpool2x2_plain,
@@ -225,6 +230,13 @@ class Backend:
         run the composed stages."""
         return None
 
+    def sweep_stage(self, quad, w, b):
+        """One stage of the frame sweep's trunk in one step: the role-map
+        quad (I, B, R, C), the same tensor four times at level 0, and the
+        stage's conv w, b -> the pooled quad, or None to compose the stage
+        (`streaming/fcn_sweep._sweep_stage`)."""
+        return None
+
     def window_head(self, maps, gy, gx, p):
         """The frame sweep's head in one step: the four (H/4, W/4) role maps
         and the windows' pooled offsets gy, gx (Nw,) int32 -> (Nw, 10)
@@ -277,11 +289,12 @@ class CudaFloatBackend(Backend):
     reference's `PallasBackend`).  `activation` selects the activation:
     "sigmoid" (matches `ref`) or "plan" (matches `plan`).  Per served
     step: one whole-net launch (`float_smallnet`) for the images its kernel
-    takes.  Other batches, and the frame sweep's composed cascade, take the
-    stages: the conv with the activation as its fused epilogue, the pool,
-    the dense product and the matching output activation (the
-    `sigmoid_pla` kernel for "plan"); two conv and two pool launches a
-    step, and one `sigmoid_pla` launch with "plan"."""
+    takes.  Per swept frame: one `float_sweep_stage` launch a trunk stage
+    (`sweep_stage`), then the composed head.  Other batches, and the frame
+    sweep's composed cascade, take the stages: the conv with the activation
+    as its fused epilogue, the pool, the dense product and the matching
+    output activation (the `sigmoid_pla` kernel for "plan"); two conv and
+    two pool launches a step, and one `sigmoid_pla` launch with "plan"."""
     name: str = "cuda"
     activation: str = "sigmoid"
 
@@ -304,6 +317,18 @@ class CudaFloatBackend(Backend):
         return float_smallnet(images.contiguous(), p["conv1"]["w"], p["conv1"]["b"],
                               p["conv2"]["w"], p["conv2"]["b"], p["dense"]["w"],
                               p["dense"]["b"], activation=self.activation)
+
+    def sweep_stage(self, quad, w, b):
+        """The `float_sweep_stage` kernel's pooled quad, each map (1, h/2,
+        w/2, 1), for one frame's (1,h,w,1) maps of even extents through a
+        2x2 single-channel conv; None for any other, which composes."""
+        x = quad[0]
+        if (x.ndim != 4 or x.shape[0] != 1 or x.shape[3] != 1 or x.shape[1] < 2
+                or x.shape[2] < 2 or x.shape[1] % 2 or x.shape[2] % 2
+                or tuple(w.shape) != (2, 2, 1, 1) or b.numel() != 1):
+            return None
+        out = float_sweep_stage(quad, w, b, activation=self.activation)
+        return tuple(m[None, ..., None] for m in out)
 
     def conv2x2_same(self, x, w, b):
         return conv2d(x, w, b, padding="SAME")

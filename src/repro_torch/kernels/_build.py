@@ -35,7 +35,7 @@ from repro_torch.core import fixed_point as fxp
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fixed_conv", "fixed_dense", "fixed_net", "frame_trunk", "float_kernels",
-           "float_net", "quant_matmul")                    # csrc/<name>.cu
+           "float_net", "float_sweep", "quant_matmul")     # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,6 +90,9 @@ SIGNATURES = {
     "float_net": {
         "float_smallnet_launch": [_I] + [_P] * 8 + [_I] * 5 + [_P],
         "float_smallnet_fits": [_I, _I, _I],
+    },
+    "float_sweep": {
+        "float_sweep_stage_launch": [_I] + [_P] * 7 + [_I] * 4 + [_P],
     },
     "quant_matmul": {
         "quant_matmul_dp4a_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

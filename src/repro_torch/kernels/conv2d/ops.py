@@ -29,6 +29,11 @@ pool twice, the dense layer and its activation, as the composed route
 computes them; `float_smallnet_fits` asks its launcher which images it
 takes.
 
+`float_sweep_stage` is one stage of the float frame sweep in one launch of
+`csrc/float_sweep.cu`: the conv, the activation and the 2x2/2 pool of the
+four role maps (`streaming/fcn_sweep._sweep_stage`), with each masked
+weight a choice of taps inside the kernel.
+
 The plain versions compute each tap's shifted window times its weights
 with elementwise ops, summed in the kernel's order.  They do not call
 `F.conv2d`: on a CUDA float32 tensor cuDNN computes in TF32 by default,
@@ -45,6 +50,9 @@ import torch.nn.functional as F
 from repro_torch.core.fixed_point import sigmoid_plan_f32
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import count_launch, on_cuda, require_tensor, stream_of
+from repro_torch.kernels.frame_trunk.ops import (_M_00, _M_01, _M_10, _M_11, _M_ALL, _M_BOT,
+                                                 _M_LEFT, _M_RIGHT, _M_TOP, pool_mix,
+                                                 pool_quadrants)
 from repro_torch.kernels.maxpool2d.ops import maxpool2d_plain
 
 _ACTIVATIONS = (None, "sigmoid", "plan")
@@ -219,4 +227,90 @@ def float_smallnet(x: torch.Tensor, c1w: torch.Tensor, c1b: torch.Tensor,
                                    _ACT_CODE[activation], stream)
     _build.check(lib, rc, f"float_smallnet {H}x{W} images, {N} classes")
     count_launch("float_smallnet")
+    return out
+
+
+# -- one stage of the float frame sweep ---------------------------------------------
+
+def _stage_args(quad, w, b, activation) -> tuple[int, int]:
+    """Check a sweep stage's arguments; (h, w) of its maps."""
+    if activation not in _NET_ACTIVATIONS:
+        raise ValueError(f"activation must be one of {_NET_ACTIVATIONS}")
+    if len(quad) != 4:
+        raise ValueError(f"float_sweep_stage: expected the quad (I, B, R, C), got "
+                         f"{len(quad)} maps")
+    for name, m in zip("IBRC", quad):
+        require_tensor(f"float_sweep_stage {name}", m, _F32, ndim=4)
+    shape = tuple(quad[0].shape)
+    if shape[0] != 1 or shape[3] != 1 or any(tuple(m.shape) != shape for m in quad):
+        raise ValueError(f"float_sweep_stage: the maps must be one (1,h,w,1) shape, got "
+                         f"{[tuple(m.shape) for m in quad]}")
+    require_tensor("float_sweep_stage w", w, _F32, numel=4)
+    require_tensor("float_sweep_stage b", b, _F32, numel=1)
+    h, wd = shape[1], shape[2]
+    if h < 2 or wd < 2 or h % 2 or wd % 2:
+        raise ValueError(f"float_sweep_stage: {h}x{wd} maps cannot pool 2x2/2 on both "
+                         f"axes (even extents of at least 2)")
+    return h, wd
+
+
+def float_sweep_stage_plain(quad, w: torch.Tensor, b: torch.Tensor, *,
+                            activation: str = "plan") -> torch.Tensor:
+    """The stage of `float_sweep_stage` on the plain float ops: the masked
+    convs (`conv2d_plain` with zeroed taps), the activation, the
+    pre-activation adds in `streaming/fcn_sweep._sweep_stage`'s association
+    order, then the pools.  That order is written out twice in the port,
+    here and in `_sweep_stage` (the kernel layer does not import the
+    streaming layer): a change to one must be made to the other, and the
+    tests hold the two against each other."""
+    I, Bm, R, C = quad
+    act = torch.sigmoid if activation == "sigmoid" else sigmoid_plan_f32
+    w4 = w.reshape(4)
+    zb = torch.zeros_like(b)
+
+    def conv(src, mask, bias):
+        m = torch.tensor(mask, dtype=w4.dtype, device=w4.device)
+        return conv2d_plain(src, (w4 * m).reshape(2, 2, 1, 1), bias)
+
+    s_ii = act(conv(I, _M_ALL, b))
+    s_li = act(conv(Bm, _M_TOP, b))
+    s_il = act(conv(R, _M_LEFT, b))
+    s_ll = act(conv(C, _M_00, b))
+    if Bm is I and R is I and C is I:                   # level 0: the collapsed quad
+        s_pi = s_ip = s_pp = s_ii
+        s_pl, s_lp = s_il, s_li
+    else:
+        s_pi = act(conv(I, _M_TOP, b) + conv(Bm, _M_BOT, zb))
+        s_ip = act(conv(I, _M_LEFT, b) + conv(R, _M_RIGHT, zb))
+        s_pp = act(((conv(I, _M_00, b) + conv(R, _M_01, zb)) + conv(Bm, _M_10, zb))
+                   + conv(C, _M_11, zb))
+        s_pl = act(conv(R, _M_00, b) + conv(C, _M_10, zb))
+        s_lp = act(conv(Bm, _M_00, b) + conv(C, _M_01, zb))
+    maps = (maxpool2d_plain(s_ii), pool_mix(s_pi, s_li),
+            pool_quadrants(s_ip, s_il, s_ip, s_il), pool_quadrants(s_pp, s_pl, s_lp, s_ll))
+    return torch.stack([m[0, ..., 0] for m in maps])
+
+
+def float_sweep_stage(quad, w: torch.Tensor, b: torch.Tensor, *,
+                      activation: str = "plan") -> torch.Tensor:
+    """One conv -> activation -> pool stage of the float frame sweep in one
+    launch.  `quad` is (I, B, R, C), four (1,h,w,1) float32 maps, the same
+    tensor four times at level 0 (the frame's pixels are role-independent,
+    and the stage collapses as `_sweep_stage` does); w the (2,2,1,1) conv
+    taps, b the (1,) bias; `activation` "sigmoid" or "plan".  Returns the
+    (4, h/2, w/2) float32 pooled quad [interior, last_row, last_col,
+    corner].  h and w must be even and at least 2."""
+    h, wd = _stage_args(quad, w, b, activation)
+    if not on_cuda(*quad, w, b):
+        return float_sweep_stage_plain(quad, w, b, activation=activation)
+    I, Bm, R, C = quad
+    out = torch.empty((4, h // 2, wd // 2), dtype=torch.float32, device=I.device)
+    lib = _build.library("float_sweep")
+    dev, stream = stream_of(I)
+    rc = lib.float_sweep_stage_launch(dev, I.data_ptr(), Bm.data_ptr(), R.data_ptr(),
+                                      C.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      h, wd, int(Bm is I and R is I and C is I),
+                                      _ACT_CODE[activation], stream)
+    _build.check(lib, rc, f"float_sweep_stage {h}x{wd} maps")
+    count_launch("float_sweep_stage")
     return out

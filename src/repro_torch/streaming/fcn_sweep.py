@@ -37,17 +37,22 @@ Edge/geometry contract (validated loudly):
 
 Routes (`megakernel`): None uses the backend's one-launch `frame_trunk`
 (the `csrc/frame_trunk.cu` kernel on `fixed_cuda`, its plain version on
-`fixed`) where the frame's geometry allows it and the composed cascade
-elsewhere, and the backend's one-launch `window_head` for the head; True
-requires the trunk and raises where there is none; False forces the
-composed stages throughout: the cascade (20 conv, 2 pool and 11 sigmoid
-launches per frame on `fixed_cuda`) and the composed head (a stack of the
-four maps, one index gather, one dense and one sigmoid launch).  All three
-give the same words.  On `fixed_cuda` the default route is 2 launches a
-frame, `frame_trunk` and `fixed_window_head`.  The float and int8 backends
-have no `frame_trunk` or `window_head` and always run the composed stages:
-per frame 20 `conv2d`, 2 `maxpool2d` and 12 `sigmoid_pla` launches on
-`cuda_plan` (no `sigmoid_pla` on `cuda`), 1 `quant_matmul` on `int8`.
+`fixed`) where the frame's geometry allows it, else each stage through the
+backend's one-launch `sweep_stage` where it has one and the composed
+stage elsewhere, and the backend's one-launch `window_head` for the head;
+True requires the trunk and raises where there is none (on every float
+backend, as in the reference); False forces the composed stages
+throughout: the cascade (20 conv, 2 pool and 11 sigmoid launches per
+frame on `fixed_cuda`) and the composed head (a stack of the four maps,
+one index gather, one dense and one sigmoid launch).  All three give the
+same words on the fixed backends; on the float ones `sweep_stage` rounds
+as the composed stage does on the card.  On `fixed_cuda` the default
+route is 2 launches a frame, `frame_trunk` and `fixed_window_head`.  On
+`cuda_plan` it is 3: a `float_sweep_stage` launch a stage
+(`csrc/float_sweep.cu`) and the composed head's `sigmoid_pla` (2 and none
+on `cuda`); its composed route is 20 `conv2d`, 2 `maxpool2d` and 12
+`sigmoid_pla` launches a frame.  `int8` has none of the three hooks and
+composes: 1 `quant_matmul` a frame.
 
 The reference jits one program per geometry; here the sweep is a plain
 function on tensors, and only the window offsets and gather indices are
@@ -103,8 +108,10 @@ def _sweep_stage(be: B.Backend, quad, w, b, phases: T.Phases | None = None):
     walks the same lattice through C.
 
     `kernels/frame_trunk/ops.frame_trunk_quad_plain` writes out the same
-    two stages and association order on plain word ops: a change to one
-    must be made to the other.
+    two stages and association order on plain word ops, and
+    `kernels/conv2d/ops.float_sweep_stage_plain` one stage on plain float
+    ops (the `float_sweep_stage` kernel's): a change to one must be made
+    to the others.
 
     A traced sweep's `phases` runs "masks" over the eight masked weights
     and "trunk" over the stage's launches.
@@ -163,9 +170,10 @@ def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
     the level-2 role-map quad (I, B, R, C), each (1, H/4, W/4) words or
     (1, H/4, W/4, 1) floats.
 
-    `megakernel`: None tries the backend's `frame_trunk` and runs the
-    composed cascade where it returns None; True requires it (raising where
-    there is none); False forces the composed cascade."""
+    `megakernel`: None tries the backend's `frame_trunk`, and where it
+    returns None runs each stage through the backend's `sweep_stage` or,
+    where that returns None, composed; True requires the trunk (raising
+    where there is none); False forces the composed cascade."""
     if megakernel is None or megakernel:
         quad = be.frame_trunk(frames, p)
         if quad is not None:
@@ -178,8 +186,11 @@ def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
                 f"multiple-of-4 frames)")
     x = be.ingest(frames)
     quad = (x, x, x, x)      # pixels are role-independent at level 0
-    quad = _sweep_stage(be, quad, p["conv1"]["w"], p["conv1"]["b"], phases)
-    return _sweep_stage(be, quad, p["conv2"]["w"], p["conv2"]["b"], phases)
+    for layer in ("conv1", "conv2"):
+        w, b = p[layer]["w"], p[layer]["b"]
+        fused = be.sweep_stage(quad, w, b) if megakernel is None else None
+        quad = fused if fused is not None else _sweep_stage(be, quad, w, b, phases)
+    return quad
 
 
 def _check_saturation(be: B.Backend) -> None:
@@ -344,7 +355,8 @@ class FcnSweep(Tiler):
     returns the frame itself as a (1,H,W,1) "tile" batch (the mass gate
     computes per-window means from it), and `score` runs the sweep on the
     caller's device: one `frame_trunk` launch and one head launch per frame
-    on `fixed_cuda`.  `megakernel` selects the route (see the module note);
+    on `fixed_cuda`, two `float_sweep_stage` launches and the head on
+    `cuda_plan`.  `megakernel` selects the route (see the module note);
     it changes launches per frame, not scores.
     """
     stride: int = 8
@@ -395,9 +407,11 @@ class FcnSweep(Tiler):
         the pipeline's frame, when given), tagged with the csrc `launches`
         it made (exact while one thread launches at a time), and split into
         children: "trunk" (the frame's upload and the trunk's launches),
-        "masks" (the params' preparation and each stage's masked weights),
-        "head" and "device_wait" (the copy back, which waits for the
-        card).  Masks and trunk come in several spans a frame."""
+        "masks" (the params' preparation and each composed stage's masked
+        weights; only the preparation where a backend's `frame_trunk` or
+        `sweep_stage` takes the stages), "head" and "device_wait" (the copy
+        back, which waits for the card).  Masks and trunk come in several
+        spans a frame."""
         tr = T.get()
         ph = None
         if tr is not None:

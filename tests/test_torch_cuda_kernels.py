@@ -8,7 +8,10 @@ five formats and `float_smallnet` at the same batches with both
 activations; `fixed_dense` on its rows and generic routes;
 `fixed_window_head` at 112x112, 56x84 and 1080x1920 frames; the tiled
 `conv2d` at its tile edges, and the direct kernel it keeps for convs no
-tile fits.
+tile fits; `float_sweep_stage`, the float sweep's stage in one launch,
+against its plain version, and the float sweep's default route against
+its composed cascade at 28x28, 112x112 and 720x1280 with both
+activations.
 Tolerances: Qm.n words, max-pooled floats, PLAN floats and quant_matmul's
 int32 sums must be equal (0); the float conv within rtol = atol = 2e-5
 (nvcc contracts its multiply-adds into FMAs, and its sigmoid is
@@ -27,6 +30,7 @@ from repro_torch.core import smallnet  # noqa: E402
 from repro_torch.data import synth_mnist  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d, conv2d_plain  # noqa: E402
+from repro_torch.kernels.conv2d import float_sweep_stage, float_sweep_stage_plain  # noqa: E402
 from repro_torch.kernels.fixed_conv import ops as C  # noqa: E402
 from repro_torch.kernels.maxpool2d import maxpool2d, maxpool2d_plain  # noqa: E402
 from repro_torch.kernels.quant_matmul import ops as D  # noqa: E402
@@ -416,3 +420,69 @@ def test_tiled_conv2d_matches_plain_on_card(cuda, B, H, W, ci, co, kh, kw, pad, 
         torch.backends.cudnn.allow_tf32 = prev
     torch.testing.assert_close(conv2d(x, w, b, padding=pad, stride=stride), lib,
                                rtol=2e-5, atol=2e-5)
+
+
+def _float_params(seed):
+    return {k: {n: a.astype(np.float32) for n, a in v.items()}
+            for k, v in _numpy_params(seed).items()}
+
+
+@pytest.mark.parametrize("activation", ["plan", "sigmoid"])
+@pytest.mark.parametrize("h,w", [(2, 2), (28, 28), (60, 44), (18, 130), (720, 1280)])
+def test_float_sweep_stage_matches_plain_on_card(cuda, activation, h, w):
+    """Both levels, one launch a stage: within 2e-5 of the plain version on
+    the card and on the CPU (the kernel's taps chain in FMAs, as the tiled
+    conv2d's do; the plain version rounds each product); the shapes cross
+    the kernel's 8x32 blocks of pooled positions."""
+    rng = np.random.default_rng(h * 7 + w)
+    p = _float_params(11)["conv2"]
+    wt, bt = (torch.from_numpy(p[n]).to(cuda) for n in ("w", "b"))
+    maps = [torch.from_numpy(rng.uniform(0, 1, (1, h, w, 1)).astype(np.float32)).to(cuda)
+            for _ in range(4)]
+    for quad in ((maps[0],) * 4, tuple(maps)):
+        reset_launches()
+        got = float_sweep_stage(quad, wt, bt, activation=activation)
+        torch.cuda.synchronize()
+        assert launches() == {"float_sweep_stage": 1}
+        assert got.shape == (4, h // 2, w // 2)
+        want = float_sweep_stage_plain(quad, wt, bt, activation=activation)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        on_cpu = float_sweep_stage_plain(tuple(m.cpu() for m in quad), wt.cpu(), bt.cpu(),
+                                         activation=activation)
+        torch.testing.assert_close(got.cpu(), on_cpu, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(28, 28), (112, 112), (720, 1280)])
+@pytest.mark.parametrize("backend,plain,default,composed", [
+    ("cuda_plan", "plan", {"float_sweep_stage": 2, "sigmoid_pla": 1},
+     {"conv2d": 20, "maxpool2d": 2, "sigmoid_pla": 12}),
+    ("cuda", "ref", {"float_sweep_stage": 2}, {"conv2d": 20, "maxpool2d": 2}),
+])
+def test_float_sweep_routes_match_on_card(cuda, shape, backend, plain, default, composed):
+    """The float sweep's default route (one `float_sweep_stage` launch a
+    stage, the composed head) against the composed cascade
+    (`megakernel=False`) on the card: role maps and window scores within
+    SWEEP_TOL, 2e-5 (the kernel rounds as the cascade does, so the aim is
+    0); both within 2e-5 of the plain sweep on the CPU; 3 launches a frame
+    on the default route and 34 on the composed one on `cuda_plan` (2 and
+    22 on `cuda`, whose head's sigmoid is torch's)."""
+    from repro_torch.streaming import FcnSweep, SyntheticVideoSource
+    from repro_torch.streaming import fcn_sweep as fs
+    params = _float_params(7)
+    frame = SyntheticVideoSource(n_frames=1, seed=7, frame_shape=shape).frames()[0]
+    maps = {mk: fs.sweep_feature_maps(params, frame.pixels, backend=backend, megakernel=mk,
+                                      device=cuda) for mk in (None, False)}
+    gaps = {name: float(np.abs(maps[None][name] - maps[False][name]).max()) for name in fs.MAPS}
+    assert max(gaps.values()) <= 2e-5, gaps
+    fb, _ = FcnSweep(stride=8).extract(frame)
+    want = FcnSweep(stride=8).score(params, fb, backend=plain, device="cpu")
+    scores = {}
+    for mk, per_frame in ((None, default), (False, composed)):
+        reset_launches()
+        scores[mk] = FcnSweep(stride=8, megakernel=mk).score(params, fb, backend=backend,
+                                                             device=cuda)
+        assert launches() == per_frame, mk
+        np.testing.assert_allclose(scores[mk], want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(scores[None], scores[False], rtol=2e-5, atol=2e-5)
+    with pytest.raises(NotImplementedError, match="no frame_trunk"):
+        FcnSweep(stride=8, megakernel=True).score(params, fb, backend=backend, device=cuda)

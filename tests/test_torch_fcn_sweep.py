@@ -358,6 +358,30 @@ def test_traced_score_spans_split_the_call(frame112, megakernel, phases):
     assert all(a.t_end == b.t_start for a, b in zip(kids, kids[1:]))
 
 
+@pytest.mark.parametrize("megakernel, phases", [
+    (False, ["trunk", "masks", "trunk", "masks", "trunk", "masks", "trunk", "head",
+             "device_wait"]),
+    (None, ["trunk", "masks", "trunk", "head", "device_wait"])])
+def test_traced_float_sweep_masks_only_where_it_composes(frame112, megakernel, phases):
+    """On `cuda_plan` the default route takes each stage through the stage
+    hook, so its "masks" phase is the params' preparation alone; the
+    composed route still makes each stage's masked weights."""
+    params = params_from_jax(numpy_params(), "cpu")
+    sw = FcnSweep(stride=8, megakernel=megakernel)
+    fb, _ = sw.extract(frame112)
+    want = sw.score(params, fb, backend="cuda_plan", device="cpu")
+    tr = T.enable(capacity=1024)
+    try:
+        got = sw.score(params, fb, backend="cuda_plan", device="cpu")
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+    np.testing.assert_array_equal(got, want)
+    (score,) = [s for s in spans if s.name == "score"]
+    kids = sorted((s for s in spans if s.parent_id == score.span_id), key=lambda s: s.t_start)
+    assert [k.name for k in kids] == phases
+
+
 def test_untraced_score_records_nothing(frame112):
     tr = T.enable(capacity=64)
     T.disable()

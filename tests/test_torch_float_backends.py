@@ -16,7 +16,10 @@ product sum in other orders than XLA's); the int8 weight and activation
 words must be equal.  Then `VisionEngine` on `cuda_plan` and `int8`
 against the reference's `smallnet.apply`, and `FcnSweep` on `plan` and
 `int8` against the port's own tiler and the reference's sweep, within
-2e-5 (the sweep reassociates the float conv sums of the edge maps).
+2e-5 (the sweep reassociates the float conv sums of the edge maps).  The
+one-launch sweep stage's plain version (`float_sweep_stage_plain`) equals
+the composed `_sweep_stage` on `plan` and `ref` float for float, and the
+`cuda_plan` sweep on CPU tensors gives `plan`'s scores on both routes.
 """
 import numpy as np
 import pytest
@@ -36,6 +39,8 @@ from repro_torch.core import fixed_point as tfxp  # noqa: E402
 from repro_torch.core import ptq  # noqa: E402
 from repro_torch.core import smallnet as tsn  # noqa: E402
 from repro_torch.core.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import launches, reset_launches  # noqa: E402
+from repro_torch.kernels.conv2d import float_sweep_stage, float_sweep_stage_plain  # noqa: E402
 from repro_torch.serving.vision_engine import VisionEngine  # noqa: E402
 from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler  # noqa: E402
 from repro_torch.streaming import fcn_sweep as tfs  # noqa: E402
@@ -205,3 +210,87 @@ def test_float_backends_have_no_frame_trunk(data, frame112):
         assert TB.get_backend(name).frame_trunk(torch.from_numpy(fb), tp) is None
         with pytest.raises(NotImplementedError, match="no frame_trunk"):
             FcnSweep(megakernel=True).score(tp, fb, backend=name, device="cpu")
+
+
+def _stage_frame(shape, frame112):
+    """A (1,H,W,1) float frame: the seed-7 112x112 frame, or seeded pixels."""
+    if shape == (112, 112):
+        return torch.from_numpy(np.ascontiguousarray(frame112.pixels[None], np.float32))
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    return torch.from_numpy(rng.uniform(0, 1, (1, *shape, 1)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(112, 112), (28, 28), (60, 44)])
+@pytest.mark.parametrize("backend,activation", [("plan", "plan"), ("ref", "sigmoid")])
+def test_float_sweep_stage_plain_equals_composed_stage(data, frame112, shape, backend,
+                                                       activation):
+    """Both levels: the one-launch stage's plain version gives the composed
+    stage's floats exactly (the same plain ops in the same order on the
+    CPU), the level-0 collapse included; the wrapper takes it on CPU
+    tensors."""
+    tp = params_from_jax(data[0], "cpu")
+    be = TB.get_backend(backend)
+    x = _stage_frame(shape, frame112)
+    quad = (x, x, x, x)
+    for layer in ("conv1", "conv2"):
+        w, b = tp[layer]["w"], tp[layer]["b"]
+        want = tfs._sweep_stage(be, quad, w, b)
+        got = float_sweep_stage_plain(quad, w, b, activation=activation)
+        assert got.shape == (4, want[0].shape[1], want[0].shape[2])
+        for k in range(4):
+            assert torch.equal(got[k], want[k][0, ..., 0]), (layer, tfs.MAPS[k])
+        assert torch.equal(float_sweep_stage(quad, w, b, activation=activation), got)
+        quad = want                  # level 1 reads the composed level-0 quad
+
+
+@pytest.mark.parametrize("megakernel", [None, False])
+def test_cuda_plan_sweep_on_cpu_tensors_gives_plan_scores(data, frame112, megakernel):
+    """`cuda_plan` with CPU tensors: the default route (one stage hook a
+    stage, the kernel's plain version) and the composed cascade both give
+    the `plan` sweep's scores.  The match is exact, not only within
+    SWEEP_TOL: on the CPU every wrapper runs the plain ops `plan` runs."""
+    tp = params_from_jax(data[0], "cpu")
+    fb, _ = FcnSweep(stride=8).extract(frame112)
+    want = FcnSweep(stride=8).score(tp, fb, backend="plan", device="cpu")
+    reset_launches()
+    got = FcnSweep(stride=8, megakernel=megakernel).score(tp, fb, backend="cuda_plan",
+                                                          device="cpu")
+    assert launches() == {}                   # plain versions launch nothing
+    np.testing.assert_allclose(got, want, **SWEEP_TOL)
+    np.testing.assert_array_equal(got, want)
+    maps = tfs.sweep_feature_maps(tp, frame112.pixels, backend="cuda_plan",
+                                  megakernel=megakernel, device="cpu")
+    want_maps = tfs.sweep_feature_maps(tp, frame112.pixels, backend="plan", device="cpu")
+    for name in tfs.MAPS:
+        np.testing.assert_array_equal(maps[name], want_maps[name])
+
+
+def test_sweep_stage_hook_only_on_the_float_kernel_backends(data, frame112):
+    """`sweep_stage` is None on every backend without the kernel, and on the
+    float kernel backends None where the maps do not pool evenly or hold
+    more than one frame; the wrapper raises on such maps."""
+    tp = params_from_jax(data[0], "cpu")
+    x = _stage_frame((112, 112), frame112)
+    w, b = tp["conv1"]["w"], tp["conv1"]["b"]
+    for name in ("ref", "plan", "int8", "fixed", "fixed_cuda"):
+        be = TB.get_backend(name)
+        p = be.prepare_params(tp, "cpu")
+        xi = be.ingest(x)
+        assert be.sweep_stage((xi,) * 4, p["conv1"]["w"], p["conv1"]["b"]) is None, name
+    for name in ("cuda", "cuda_plan"):
+        be = TB.get_backend(name)
+        quad = be.sweep_stage((x,) * 4, w, b)
+        assert [tuple(m.shape) for m in quad] == [(1, 56, 56, 1)] * 4
+        for bad in (x[:, :111], x[:, :, :111], torch.cat([x, x]), x[:, :1, :1]):
+            bad = bad.contiguous()
+            assert be.sweep_stage((bad,) * 4, w, b) is None, tuple(bad.shape)
+    for bad in (x[:, :111], x[:, :1, :2], x[:, :0]):
+        bad = bad.contiguous()
+        with pytest.raises(ValueError, match="even extents"):
+            float_sweep_stage((bad,) * 4, w, b)
+    with pytest.raises(ValueError, match="one \\(1,h,w,1\\) shape"):
+        float_sweep_stage((x, x, x, x[:, :56].contiguous()), w, b)
+    with pytest.raises(TypeError, match="float32"):
+        float_sweep_stage((x.double(),) * 4, w, b)
+    with pytest.raises(ValueError, match="activation"):
+        float_sweep_stage((x,) * 4, w, b, activation=None)

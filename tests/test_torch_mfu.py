@@ -330,6 +330,8 @@ def test_count_launches_against_the_profilers_events(monkeypatch, events, want):
         with pytest.raises(want) as e:
             L.count_launches(call)
         assert (e.type is L.LostWindow) == (want is L.LostWindow)
+        if e.type is L.LaunchMismatch:         # the two counts, for a caller to read
+            assert (e.value.seen, e.value.counted) == ({}, {"frame_trunk": 1})
 
 
 def test_profiler_windows_needs_the_card():
