@@ -76,8 +76,31 @@ class Roofline:
         return per_dev / (self.step_time_s * DEVICE_DB[self.device].peak("bf16"))
 
 
+def _latent_moe_params(cfg) -> tuple[float, float]:
+    """mla_moe (DeepSeek-V3's block): total, and active a token as the
+    matmuls a token passes through (its `top_k` experts, the shared ones,
+    the router, the lm head; the embedding is a gather)."""
+    d, L, H, r = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    attn = d * H * (nope + rope) + d * (r + rope) + r * H * (nope + vd) + H * vd * d
+    norms = 2 * d + r
+    expert = 3 * d * cfg.moe_d_ff
+    shared = cfg.n_shared_experts * expert
+    router = d * cfg.n_experts + cfg.n_experts
+    Ld = cfg.first_dense_layers
+    dense_mlp = 3 * d * cfg.d_ff
+    vocab = cfg.vocab_padded * d
+    total = (L * (attn + norms) + Ld * dense_mlp
+             + (L - Ld) * (cfg.n_experts * expert + shared + router) + 2 * vocab + d)
+    active = (L * attn + Ld * dense_mlp
+              + (L - Ld) * (cfg.top_k * expert + shared + router) + vocab)
+    return float(total), float(active)
+
+
 def param_count(cfg: ArchConfig) -> tuple[float, float]:
     """(total params, active params) analytic."""
+    if cfg.family == "mla_moe":
+        return _latent_moe_params(cfg)
     d, L, ff, hd = cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
     attn = d * H * hd + 2 * d * K * hd + H * hd * d
@@ -132,6 +155,11 @@ def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
         attn_layers = cfg.n_layers // cfg.attn_period
     else:
         attn_layers = 0
+    if cfg.family == "mla_moe":
+        # absorbed: scores on the latent and the roped key, the latent output
+        return flops + (2.0 * shape.global_batch * cfg.n_heads
+                        * (2 * cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+                        * shape.seq_len * cfg.n_layers)
     flops += (4.0 * shape.global_batch * cfg.n_heads * cfg.head_dim
               * shape.seq_len * attn_layers)
     return flops
@@ -144,7 +172,8 @@ def analytic_bytes(cfg: ArchConfig, shape: ShapeSpec, devices: int) -> float:
     prefill: params once + 2x activations + KV write
     decode:  params once + full KV/state cache read + write-back of one slot
     Parameter bytes are `cfg.param_dtype`'s; all bytes are spread evenly
-    over the devices (/devices).
+    over the devices (/devices).  An mla_moe cache is the latent one
+    (`kv_lora_rank + qk_rope_head_dim` a token and layer).
     """
     total, _ = param_count(cfg)
     # the reference reads `param_dtype.__name__`, which torch dtypes lack
@@ -159,6 +188,8 @@ def analytic_bytes(cfg: ArchConfig, shape: ShapeSpec, devices: int) -> float:
         acts = cfg.n_layers * shape.global_batch * shape.seq_len * cfg.d_model * dt
         kv = (2 * cfg.n_layers * shape.global_batch * shape.seq_len
               * cfg.n_kv_heads * cfg.head_dim * dt)
+        if cfg.family == "mla_moe":
+            kv = _latent_cache_bytes(cfg, shape)
         traffic = pb + 2 * acts + kv
     else:
         if cfg.family == "ssm":
@@ -170,11 +201,18 @@ def analytic_bytes(cfg: ArchConfig, shape: ShapeSpec, devices: int) -> float:
                      * cfg.n_kv_heads * cfg.head_dim * dt)
             cache += (cfg.n_layers - n_super) * shape.global_batch * \
                 2 * cfg.d_model * 16 * 4
+        elif cfg.family == "mla_moe":
+            cache = _latent_cache_bytes(cfg, shape)
         else:
             cache = (2 * cfg.n_layers * shape.global_batch * shape.seq_len
                      * cfg.n_kv_heads * cfg.head_dim * dt)
         traffic = pb + cache
     return traffic / devices
+
+
+def _latent_cache_bytes(cfg, shape: ShapeSpec) -> float:
+    return (cfg.n_layers * shape.global_batch * shape.seq_len
+            * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2)
 
 
 def roofline_from_cell(art, *, device: str = "h100") -> Roofline:

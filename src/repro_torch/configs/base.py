@@ -93,6 +93,34 @@ class ArchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LatentMoEConfig(ArchConfig):
+    """DeepSeek-V3's block: multi-head latent attention (MLA) and a routed
+    MoE with shared experts behind `first_dense_layers` dense layers
+    (family "mla_moe").  A subclass, so that every `ArchConfig` keeps the
+    reference's fields.  `head_dim` is the query/key head width,
+    `qk_nope_head_dim + qk_rope_head_dim`."""
+    # MLA: no query low-rank projection; keys and values from a latent of
+    # `kv_lora_rank`, beside a shared roped key of `qk_rope_head_dim`
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # MoE: routed experts of width `moe_d_ff`, shared experts of the same
+    # width, `first_dense_layers` dense layers of width `d_ff` first
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
+    # the router: sigmoid scores, experts picked on score + bias, weights
+    # the unbiased scores (renormalised over the top k) times `routed_scale`
+    router_scoring: str = "sigmoid"
+    routed_scale: float = 1.0
+    norm_topk_prob: bool = True
+    router_dtype: Any = torch.float32
+    norm_eps: float = 1e-6
+    context_length: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
     seq_len: int

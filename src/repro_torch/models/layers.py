@@ -40,6 +40,22 @@ class Draw:
         x = torch.randn(shape, generator=self.gen, device=self.device, dtype=torch.float32)
         return (x * std).to(dtype)
 
+    def normal_around(self, shape, std: float, spread: float, dtype) -> torch.Tensor:
+        """A (L, E, ...) stack of E leaves a slice, each one shared draw of
+        the slice plus `spread` times a draw of its own, scaled back to
+        `std`: (base + spread * own) * std / sqrt(1 + spread^2).  Drawn and
+        cast a slice at a time: a stack of billions of bfloat16 weights
+        never exists whole in float32."""
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        k = std / math.sqrt(1.0 + spread * spread)
+        for i in range(shape[0]):
+            base = torch.randn((1,) + tuple(shape[2:]), generator=self.gen, device=self.device)
+            own = torch.randn(shape[1:], generator=self.gen, device=self.device)
+            out[i] = ((base + spread * own) * k).to(dtype)
+        return out
+
     def full(self, shape, value: float, dtype) -> torch.Tensor:
         return torch.full(shape, value, dtype=dtype, device=self.device)
 

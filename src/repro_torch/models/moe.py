@@ -99,3 +99,98 @@ def moe_mlp(x, p, cfg, *, group_size: int = 512, capacity_factor: float = 1.25):
     ye = torch.einsum("egcf,efd->egcd", h, wo)
     y = torch.einsum("gsec,egcd->gsd", combine.to(cfg.dtype), ye)
     return y.reshape(B, S, d), aux
+
+
+# --- DeepSeek-V3's routed experts: sigmoid + bias, dropless, shared experts --
+
+ROUTER_BIAS_STD = 0.05    # the correction bias's draw (learned in the release)
+# Each routed expert is drawn as one draw shared by the layer's experts plus
+# EXPERT_SPREAD times a draw of its own (as sparse upcycling starts its
+# experts from one dense MLP, Komatsuzaki et al. 2022).  With independent
+# random experts, each rounding that flips a top-k choice swaps a k-th of
+# the layer's routed output for an unrelated one; over 26 MoE layers that
+# makes a random model chaotic, and bfloat16 and int8 weights then land
+# equally far from a float32 forward (`PERF.md` §6).
+EXPERT_SPREAD = 0.1
+
+
+def init_routed_moe(draw: layers.Draw, cfg, lead: tuple = ()) -> tuple[dict, dict]:
+    """Router (float32 `router_dtype`, with its correction bias), `n_experts`
+    gated experts of width `moe_d_ff` and one gated MLP of width
+    `n_shared_experts * moe_d_ff` for the shared experts.  The experts'
+    stacks are drawn a layer at a time around a shared draw
+    (`Draw.normal_around`, `EXPERT_SPREAD`)."""
+    if cfg.router_scoring != "sigmoid":
+        raise ValueError(f"routed_moe routes by sigmoid scores, not {cfg.router_scoring!r}")
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dt, rt = cfg.param_dtype, cfg.router_dtype
+    p = {
+        "router": {"w": draw.normal(lead + (d, E), 1.0 / math.sqrt(d), rt),
+                   "bias": draw.normal(lead + (E,), ROUTER_BIAS_STD, rt)},
+        "wi": draw.normal_around(lead + (E, d, f), 1.0 / math.sqrt(d), EXPERT_SPREAD, dt),
+        "wg": draw.normal_around(lead + (E, d, f), 1.0 / math.sqrt(d), EXPERT_SPREAD, dt),
+        "wo": draw.normal_around(lead + (E, f, d), 1.0 / math.sqrt(f), EXPERT_SPREAD, dt),
+    }
+    ps, as_ = layers.init_mlp(draw, d, cfg.n_shared_experts * f, "gated", dt, lead)
+    p["shared"] = ps
+    a = {
+        "router": {"w": (None, None), "bias": (None,)},
+        "wi": ("experts", "fsdp", None),
+        "wg": ("experts", "fsdp", None),
+        "wo": ("experts", None, "fsdp"),
+    }
+    return p, dict(layers.stacked_axes(a, lead), shared=as_)
+
+
+def route_sigmoid(x2, p, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """x2 (T, d) -> (weights (T, k) float32, experts (T, k) int64): the
+    published `noaux_tc` gate with one group.  Scores are the sigmoid of
+    float32 logits; the k experts are picked on score + bias (ties toward
+    the lower index); their weights are the unbiased scores, renormalised
+    over the k (`norm_topk_prob`, + 1e-20 as published) and times
+    `routed_scale`."""
+    w = layers._materialize(p["router"]["w"], torch.float32)
+    scores = torch.sigmoid(x2.float() @ w)
+    _, idx = top_k(scores + p["router"]["bias"].float(), cfg.top_k)
+    weights = torch.gather(scores, -1, idx)
+    if cfg.top_k > 1 and cfg.norm_topk_prob:
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+    return weights * cfg.routed_scale, idx
+
+
+def routed_moe(x, p, cfg, *, capacity: int | None = None, load: list | None = None):
+    """x (B, S, d) -> (B, S, d): every (token, expert) pair the router picks
+    is computed (dropless), weighted and summed in float32, plus the shared
+    experts' gated MLP on every token.
+
+    The routed pairs are sorted by expert into a padded (E, C, d) batch,
+    C the most pairs any expert got, and the experts run as three batched
+    matmuls over it: one launch each for all experts.  `capacity` fixes C
+    instead (>= that most; a token picks an expert at most once, so C = T
+    always holds): with it nothing is read back to the host, which a decode
+    step uses.  With `load` a list, the experts' pair counts (E,) are
+    appended to it, on the device."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    x2 = x.reshape(T, d)
+    weights, idx = route_sigmoid(x2, p, cfg)
+    e = idx.reshape(-1)                                           # (T*k,)
+    order = torch.argsort(e, stable=True)
+    e_s = e[order]
+    tok = order // k
+    counts = torch.bincount(e, minlength=E)
+    if load is not None:
+        load.append(counts)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * k, device=x.device) - starts[e_s]
+    C = capacity if capacity is not None else int(counts.max())
+    xe = torch.zeros((E, C, d), dtype=cfg.dtype, device=x.device)
+    xe[e_s, rank] = x2[tok].to(cfg.dtype)
+    wi, wg, wo = (layers._materialize(p[n], cfg.dtype) for n in ("wi", "wg", "wo"))
+    h = layers.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
+    ye = torch.bmm(h, wo)                                          # (E, C, d)
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, tok, ye[e_s, rank].float() * weights.reshape(-1)[order, None])
+    shared = layers.mlp(x, p["shared"], "gated", cfg.dtype)
+    return y.to(cfg.dtype).reshape(B, S, d) + shared

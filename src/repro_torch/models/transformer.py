@@ -13,16 +13,30 @@ Entry points (all functions of (cfg, params, ...)):
     prefill(cfg, params, batch)                -> (last_logits, cache)
     decode_step(cfg, params, cache, token, pos) -> (logits, cache)   [cache updated in place]
     init_cache_shape(cfg, batch, max_len)      -> dict of meta tensors
+
+The "mla_moe" family (DeepSeek-V3's block, `configs.base.LatentMoEConfig`)
+keeps its `first_dense_layers` in a stack of their own ("dense_blocks",
+gated MLP) before the MoE stack ("blocks"); its cache is the latent one
+of `models/mla.py`, "ckv" and "kpe" with a leading layer axis.  Its
+`decode_step` takes a position a slot (`pos` of shape (B,)), and its
+`prefill` can write a prompt's rows into given slots of a cache.  With a
+`span` (the port's tracer on), both record a child span a layer ("mla",
+then "dense_mlp" or "moe") and "lm_head"; a "moe" span's expert load is
+tagged after the step's last device read (`tag_expert_load`).
 """
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.ptq import QuantTensor
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, mamba, moe, rwkv6
+from repro_torch.models import layers, mamba, mla, moe, rwkv6
+from repro_torch.obs import trace
 
 # ---------------------------------------------------------------------------
 # init
@@ -75,6 +89,18 @@ def _init_whisper_dec_block(draw, cfg, lead):
              "norm1": norms[0][1], "norm2": norms[1][1], "norm3": norms[2][1]})
 
 
+def _init_mla_block(draw, cfg, lead, dense: bool):
+    pa, aa = mla.init_mla(draw, cfg, lead)
+    n1, an1 = layers.init_norm(draw, cfg.d_model, "rmsnorm", cfg.param_dtype, lead)
+    n2, an2 = layers.init_norm(draw, cfg.d_model, "rmsnorm", cfg.param_dtype, lead)
+    if dense:
+        pm, am = layers.init_mlp(draw, cfg.d_model, cfg.d_ff, "gated", cfg.param_dtype, lead)
+    else:
+        pm, am = moe.init_routed_moe(draw, cfg, lead)
+    return ({"attn": pa, "mlp": pm, "norm1": n1, "norm2": n2},
+            {"attn": aa, "mlp": am, "norm1": an1, "norm2": an2})
+
+
 def init_params(cfg, generator: torch.Generator | None = None, *,
                 device: torch.device | str | None = None) -> tuple[dict, dict]:
     """The port's own draw, with the reference's shapes, dtypes and stds
@@ -101,6 +127,11 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
     elif fam == "hybrid":
         params["blocks"], axes["blocks"] = _init_jamba_superblock(
             draw, cfg, (cfg.n_layers // cfg.attn_period,))
+    elif fam == "mla_moe":
+        nd = cfg.first_dense_layers
+        params["dense_blocks"], axes["dense_blocks"] = _init_mla_block(draw, cfg, (nd,), True)
+        params["blocks"], axes["blocks"] = _init_mla_block(
+            draw, cfg, (cfg.n_layers - nd,), False)
     elif fam == "audio":
         params["enc_blocks"], axes["enc_blocks"] = _init_dense_block(
             draw, cfg, (cfg.encoder_layers,))
@@ -214,6 +245,77 @@ def _whisper_dec_body(cfg, x, blk, positions, enc_k, enc_v):
     return h, 0.0
 
 
+def _rms(cfg, x, p):
+    return layers.rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+def _mla_ffn(cfg, h, blk, dense: bool, sp=None, capacity: int | None = None):
+    """h + the layer's MLP of norm2(h): a gated MLP on a dense layer, the
+    routed and shared experts on the others (`capacity` as in
+    `moe.routed_moe`).  With `sp`, its span ("dense_mlp" or "moe", whose
+    expert load is kept) is marked."""
+    hn = _rms(cfg, h, blk["norm2"])
+    load = [] if sp is not None and not dense else None
+    if dense:
+        y = layers.mlp(hn, blk["mlp"], "gated", cfg.dtype)
+    else:
+        y = moe.routed_moe(hn, blk["mlp"], cfg, capacity=capacity, load=load)
+    if sp is not None:
+        s = sp.mark("dense_mlp" if dense else "moe")
+        if load:
+            sp.loads.append((s, load[0]))
+    return h + y
+
+
+def _mla_body(cfg, x, blk, positions, dense: bool):
+    """One DeepSeek-V3 layer, as published: h = x + MLA(norm1(x)), then
+    h + MLP(norm2(h)) (a gated MLP on the dense layers, the routed and
+    shared experts on the others), each sum in the compute dtype."""
+    h = x + mla.mla_block(_rms(cfg, x, blk["norm1"]), blk["attn"], cfg, positions)
+    return _mla_ffn(cfg, h, blk, dense), 0.0
+
+
+def _mla_stacks(params):
+    """(layer params, dense?) of every layer of an mla_moe model, in order."""
+    for name, dense in (("dense_blocks", True), ("blocks", False)):
+        for blk in unstack(params[name]):
+            yield blk, dense
+
+
+class _LayerSpans:
+    """Consecutive child spans of `parent`, each from the previous mark to
+    this one; the "moe" spans' expert loads kept on the device until
+    `tag_expert_load` reads them after the step."""
+
+    def __init__(self, parent):
+        self.tr, self.parent, self.t = trace.get(), parent, time.perf_counter()
+        self.loads: list = []
+
+    def mark(self, name: str):
+        t = time.perf_counter()
+        s = self.tr.emit(name, self.parent.trace_id, self.t, t, parent=self.parent)
+        self.t = t
+        return s
+
+    def close(self):
+        if self.loads:
+            self.parent.tags["_expert_load"] = ([s for s, _ in self.loads],
+                                                torch.stack([c for _, c in self.loads]))
+
+
+def tag_expert_load(span) -> None:
+    """After the step's device work is read back: tag each "moe" child of
+    `span` with the most pairs any routed expert got (`tokens_max`) and
+    the mean over the experts (`tokens_mean`)."""
+    load = span.tags.pop("_expert_load", None) if span is not None else None
+    if load is None:
+        return
+    spans, counts = load
+    for s, c in zip(spans, counts.tolist()):
+        s.tags["tokens_max"] = max(c)
+        s.tags["tokens_mean"] = sum(c) / len(c)
+
+
 def _scan_blocks(cfg, x, stacked, body):
     """x through the stacked blocks in order; body(x, blk) -> (x, aux).
     With `cfg.remat`, while autograd records, each block keeps only its
@@ -283,6 +385,11 @@ def forward(cfg, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     elif fam == "hybrid":
         x, aux = _scan_blocks(cfg, x, params["blocks"],
                               lambda x, blk: _jamba_body(cfg, x, blk, positions))
+    elif fam == "mla_moe":
+        for name, dense in (("dense_blocks", True), ("blocks", False)):
+            x, aux = _scan_blocks(cfg, x, params[name],
+                                  lambda x, blk, d=dense: _mla_body(cfg, x, blk, positions, d))
+        return _logits(cfg, params, _rms(cfg, x, params["final_norm"])), aux
     else:
         raise ValueError(fam)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
@@ -311,6 +418,10 @@ def init_cache_shape(cfg, batch: int, max_len: int) -> dict:
                     "v": meta((L, batch, max_len, K, hd), cfg.dtype)}
     if fam in ("dense", "moe", "vlm"):
         return kv(cfg.n_layers)
+    if fam == "mla_moe":
+        L = cfg.n_layers
+        return {"ckv": meta((L, batch, max_len, cfg.kv_lora_rank), cfg.dtype),
+                "kpe": meta((L, batch, max_len, cfg.qk_rope_head_dim), cfg.dtype)}
     if fam == "ssm":
         return {k: meta((cfg.n_layers,) + v.shape, v.dtype)
                 for k, v in rwkv6.rwkv_state_shape(batch, cfg).items()}
@@ -334,10 +445,37 @@ def zeros_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
             for k, v in init_cache_shape(cfg, batch, max_len).items()}
 
 
-def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos):
-    """token (B,1) int; pos the current position (an int or a 0-d tensor).
+PER_SLOT_POSITIONS = ("mla_moe",)     # families whose decode_step takes pos (B,)
+
+
+def _mla_decode(cfg, params, cache, token, pos, span=None):
+    B = token.shape[0]
+    pos_h = np.broadcast_to(np.asarray(pos, np.int64).reshape(-1), (B,))
+    t_used = int(pos_h.max()) + 1
+    x = layers.embed(token, params["embed"], cfg.dtype)   # (B,1,d)
+    pos_t = torch.as_tensor(np.array(pos_h), device=x.device)
+    sp = _LayerSpans(span) if span is not None else None
+    for li, (blk, dense) in enumerate(_mla_stacks(params)):
+        y = mla.absorbed_decode(_rms(cfg, x, blk["norm1"]), blk["attn"], cfg,
+                                cache["ckv"][li], cache["kpe"][li], pos_t, t_used)
+        if sp is not None:
+            sp.mark("mla")
+        x = _mla_ffn(cfg, x + y, blk, dense, sp, capacity=B)
+    logits = _logits(cfg, params, _rms(cfg, x, params["final_norm"]))[:, 0]
+    if sp is not None:
+        sp.mark("lm_head")
+        sp.close()
+    return logits, cache
+
+
+def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos, *, span=None):
+    """token (B,1) int; pos the current position (an int or a 0-d tensor;
+    for the families of `PER_SLOT_POSITIONS` also one a slot, (B,)).
     Returns (logits (B, vocab_padded) f32, cache): the cache's tensors are
-    updated in place (the reference donates its cache to the step)."""
+    updated in place (the reference donates its cache to the step).
+    `span`: the parent of the layers' spans (mla_moe only)."""
+    if cfg.family == "mla_moe":
+        return _mla_decode(cfg, params, cache, token, pos, span)
     B = token.shape[0]
     pos = int(pos)
     x = layers.embed(token, params["embed"], cfg.dtype)   # (B,1,d)
@@ -403,10 +541,39 @@ def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos):
     return _logits(cfg, params, x)[:, 0], dict(cache)
 
 
-def prefill(cfg, params, batch: dict):
+def _mla_prefill(cfg, params, tokens, cache, slots, span):
+    B, S = tokens.shape
+    x = layers.embed(tokens, params["embed"], cfg.dtype)
+    positions = torch.arange(S, device=x.device)
+    sp = _LayerSpans(span) if span is not None else None
+    if cache is None:
+        cache = {k: torch.empty(v.shape, dtype=v.dtype, device=x.device)
+                 for k, v in init_cache_shape(cfg, B, S).items()}
+        slots = range(B)
+    slots = torch.as_tensor(list(slots), device=x.device)
+    for li, (blk, dense) in enumerate(_mla_stacks(params)):
+        o, ckv, kpe = mla.prefill_block(_rms(cfg, x, blk["norm1"]), blk["attn"], cfg, positions)
+        cache["ckv"][li, slots, :S] = ckv.to(cache["ckv"].dtype)
+        cache["kpe"][li, slots, :S] = kpe.to(cache["kpe"].dtype)
+        if sp is not None:
+            sp.mark("mla")
+        x = _mla_ffn(cfg, x + o, blk, dense, sp)
+    logits = _logits(cfg, params, _rms(cfg, x[:, -1:], params["final_norm"]))[:, -1]
+    if sp is not None:
+        sp.mark("lm_head")
+        sp.close()
+    return logits, cache
+
+
+def prefill(cfg, params, batch: dict, *, cache: dict | None = None, slots=None, span=None):
     """Single-pass prompt processing: forward math + decode-cache
     materialization in the same layer loop.  Returns
-    (last-position logits (B, vocab_padded), cache)."""
+    (last-position logits (B, vocab_padded), cache).  For mla_moe, with
+    `cache` and `slots` (B slot indices) the prompts' rows are written
+    into those slots of `cache`, in place, and `cache` is returned;
+    `span` as in `decode_step`."""
+    if cfg.family == "mla_moe":
+        return _mla_prefill(cfg, params, batch["tokens"], cache, slots, span)
     tokens = batch["tokens"]
     B, S = tokens.shape
     fam = cfg.family
