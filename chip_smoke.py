@@ -70,9 +70,13 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             both activations; the float sweep's default route against
             its composed cascade on cuda_plan and cuda at 28x28, 112x112
             and 720x1280 (maps and scores, the largest gap; launches a
-            frame 3 / 34 and 2 / 22); the two stages timed at 112x112 and
+            frame 3 / 34 and 3 / 22); the two stages timed at 112x112 and
             720x1280 beside their bound, the plain version and the
-            composed cascade
+            composed cascade.  Then float_window_head, the float sweep's
+            head in one launch: within 1e-6 of its plain version (card and
+            CPU) and of the composed head at 28x28, 112x112 and 720x1280
+            with both activations, timed with PLAN at 112x112 and 720x1280
+            beside its bound, the plain version and the composed head
   serve     VisionEngine(backend="fixed_cuda", batch_size=64, device="cuda"),
             threaded, over 1024 synth_mnist images in Q16.16 and in Q8.8:
             every score word equals the plain `fixed` backend's on the CPU,
@@ -141,7 +145,10 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             frame) beside it, and a 4-frame 1080x1920 clip through the
             frame_trunk route, word-checked against the CPU.  Then the same
             64-frame 112x112 clip on cuda_plan (2 float_sweep_stage and 1
-            sigmoid_pla a frame), on cuda_plan's composed cascade
+            float_window_head a frame, each frame a replay of the frame
+            graph the warm-up captured, `fcn_sweep_graph` counting one
+            capture and 64 replays; so too the fixed_cuda clips), on
+            cuda_plan's composed cascade
             (megakernel=False: 20 conv2d, 2 maxpool2d, 12 sigmoid_pla a
             frame) and on int8 (1 quant_matmul a frame): window scores within 2e-5
             of the CPU sweep and tiler, detections equal (label and place;
@@ -272,6 +279,7 @@ TRUNK_GOLDEN = ROOT / "tests" / "golden" / "frame_trunk_golden.json"
 HBM_BYTES_PER_S = INT32_OPS_PER_S = F32_FLOPS_PER_S = INT8_OPS_PER_S = None
 BF16_FLOPS_PER_S = None
 FLOAT_TOL = 2e-5            # float scores and conv outputs, rtol = atol
+HEAD_TOL = 1e-6             # the float window head: it sums in another order than cuBLAS
 
 ENGINE_BATCH = 64
 LARGE_BATCH = 16384
@@ -372,6 +380,11 @@ KERNELS = {
                           "sigmoid_pla_pallas, maxpool2d_pallas jitted)"),
     "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul/kernel.py:42"),
+    # the float sweep's head in one launch: the reference's XLA gather and
+    # matmul, then row 8 (no pallas_call of its own)
+    "float_window_head": ("src/repro_torch/csrc/float_sweep.cu",
+                          "src/repro/streaming/fcn_sweep.py _head_scores (XLA's matmul, "
+                          "then sigmoid_pla_pallas)"),
 }
 
 
@@ -1243,9 +1256,9 @@ def phase_float_sweep_kernel(card: str) -> dict:
 
     routes, route_gap = [], 0.0
     for name, plain, per_frame in (
-            ("cuda_plan", "plan", {None: {"float_sweep_stage": 2, "sigmoid_pla": 1},
+            ("cuda_plan", "plan", {None: {"float_sweep_stage": 2, "float_window_head": 1},
                                    False: {"conv2d": 20, "maxpool2d": 2, "sigmoid_pla": 12}}),
-            ("cuda", "ref", {None: {"float_sweep_stage": 2},
+            ("cuda", "ref", {None: {"float_sweep_stage": 2, "float_window_head": 1},
                              False: {"conv2d": 20, "maxpool2d": 2}})):
         for shape in ((28, 28), (112, 112), (720, 1280)):
             frame = SyntheticVideoSource(seed=7, frame_shape=shape, n_frames=1).frames()[0]
@@ -1323,6 +1336,77 @@ def phase_float_sweep_kernel(card: str) -> dict:
     emit("kernel", name="float_sweep_stage", checked=n_checked, max_abs_err=max_err,
          route_gap_max=route_gap, routes=routes, card=card, sweep_frame=table, shapes=shapes,
          library="none: no single PyTorch call computes the pooled quad")
+    return table
+
+
+def phase_float_window_head_kernel(card: str) -> dict:
+    """float_window_head, the float sweep's head in one launch: against its
+    plain version (stack, gather, `@ w + b`, activation in torch ops) on the
+    card and on the CPU, and against the composed head the sweep took before
+    (the same with the `sigmoid_pla` kernel on cuda_plan), within HEAD_TOL,
+    with both activations, at 28x28, 112x112 and 720x1280 frames; one launch
+    a call.  With PLAN at 112x112 and 720x1280: its time (CUDA events)
+    beside its bound, the plain version's and the composed head's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import backends as B
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.conv2d import float_window_head, float_window_head_plain
+    from repro_torch.streaming import FcnSweep
+    from repro_torch.streaming import fcn_sweep as fs
+
+    rng = np.random.default_rng(2030)
+    dev = torch.device("cuda")
+    on_card = params_on(seeded_params(7), "cuda")
+    wd, bd = on_card["dense"]["w"], on_card["dense"]["b"]
+    timed = {(112, 112): "sweep frame 112x112", (720, 1280): "frame 720x1280"}
+    max_err, n_checked, shapes = 0.0, 0, []
+    for act, name in (("plan", "cuda_plan"), ("sigmoid", "cuda")):
+        be = B.get_backend(name)
+        for H, W in ((28, 28), (112, 112), (720, 1280)):
+            h, w = H // 4, W // 4
+            pos = tuple(FcnSweep(stride=SWEEP_STRIDE).positions((H, W)))
+            gy, gx = fs._window_origins(28, pos, (h, w), dev)
+            maps = [torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).cuda()
+                    for _ in range(4)]
+            quad = tuple(m[None, ..., None] for m in maps)
+            reset_launches()
+            got = float_window_head(maps, gy, gx, wd, bd, activation=act)
+            torch.cuda.synchronize()
+            expect(launches() == {"float_window_head": 1},
+                   f"float_window_head {H}x{W} {act}: launches {launches()}")
+            plain = lambda: float_window_head_plain(maps, gy, gx, wd, bd, activation=act)
+            composed = lambda: fs._head_scores(be, on_card, quad, 28, pos, fused=False)
+            cpu = float_window_head_plain([m.cpu() for m in maps], gy.cpu(), gx.cpu(),
+                                          wd.cpu(), bd.cpu(), activation=act)
+            errs = {"plain": float((got - plain()).abs().max()),
+                    "composed": float((got - composed()).abs().max()),
+                    "cpu": float((got.cpu() - cpu).abs().max())}
+            expect(got.shape == (len(pos), 10) and max(errs.values()) <= HEAD_TOL,
+                   f"float_window_head {H}x{W} {act}: gaps {errs}")
+            max_err, n_checked = max(max_err, *errs.values()), n_checked + 1
+            if act != "plan" or (H, W) not in timed:
+                continue
+            nbytes, ops = window_head_work(len(pos), h, w, 49, 10)
+            b_ms, b_by = bound_ms(nbytes, ops, F32_FLOPS_PER_S)
+            shapes.append({"case": timed[(H, W)], "windows": len(pos), "ms": device_ms(
+                lambda: float_window_head(maps, gy, gx, wd, bd, activation=act), 50),
+                "plain_ms": device_ms(plain, 5), "composed_head_ms": device_ms(composed, 50),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes,
+                "ops": ops})
+    try:                                       # a window past the maps: the plain check
+        float_window_head_plain(maps, gx, gy, wd, bd)
+        raise SmokeError("float_window_head_plain: a window past the maps did not raise")
+    except ValueError:
+        pass
+    first = shapes[0]                                      # 112x112, PLAN
+    table = {"name": "float_window_head", "route": "cuda",
+             "source": KERNELS["float_window_head"][0],
+             "replaces": KERNELS["float_window_head"][1], "launches": 0, "max_abs_err": max_err,
+             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("kernel", name="float_window_head", checked=n_checked, max_abs_err=max_err,
+         card=card, sweep_frame=table, shapes=shapes,
+         library="none: no single PyTorch call computes the windowed head")
     return table
 
 
@@ -2180,8 +2264,15 @@ def same_detections(got, want, tol: float) -> bool:
         and abs(g.score - w.score) <= tol for g, w in zip(got, want))
 
 
+def graph_events() -> dict[str, int]:
+    """The `fcn_sweep_graph` counter's values by event."""
+    from repro_torch.obs import metrics as M
+    return {e: M.REGISTRY.counter("fcn_sweep_graph", event=e).value
+            for e in ("capture", "replay", "eager")}
+
+
 def sweep_once(params, source, backend, plain, threshold, label, card, want_per_frame, *,
-               megakernel=None, tiler_scores=None, tol=0.0):
+               megakernel=None, tiler_scores=None, tol=0.0, graphed=False):
     """Drive StreamingPipeline(source, VisionEngine(backend, cuda), FcnSweep)
     in throughput mode; check every frame's detections and the scores the
     pipeline itself produced against the `plain` backend's sweep on the CPU
@@ -2189,7 +2280,9 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
     launches per frame; return (launch counts, frames/s over the client's
     wall window).  `tiler_scores(frame)`, when given, are the host tiler's
     CPU scores for the frame, which the first frames' scores must also
-    match."""
+    match.  `graphed`: every frame of the run replays the frame graph the
+    pipeline's warm-up sweep captured (`fcn_sweep_graph`); else every call
+    is eager."""
     import numpy as np
     import torch
     from repro_torch.core import backends as B
@@ -2227,14 +2320,24 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
            for sc in cpu_scores] if tol else []
     eng = VisionEngine(params_on(params, "cuda"), backend=backend,
                        batch_size=ENGINE_BATCH, device="cuda")
+    g0 = graph_events()
     pipe = StreamingPipeline(source, eng, sweep)      # runs one warm-up sweep
     torch.cuda.synchronize()
     reset_launches()
     sweep.words.clear()
+    g1 = graph_events()
     t0 = time.perf_counter()
     results = pipe.run()
     wall_s = time.perf_counter() - t0
     counts = launches()
+    g2 = graph_events()
+    warm = {k: g1[k] - g0[k] for k in g0}
+    run = {k: g2[k] - g1[k] for k in g0}
+    expect(warm == ({"capture": 1, "replay": 0, "eager": 0} if graphed
+                    else {"capture": 0, "replay": 0, "eager": 1})
+           and run == {"capture": 0, "replay": len(frames) if graphed else 0,
+                       "eager": 0 if graphed else len(frames)},
+           f"{label}: fcn_sweep_graph warm-up {warm}, run {run} (graphed={graphed})")
     st = pipe.stats()
     n = len(frames)
     expect(st["accounted"] and st["frames_served"] == n and st["frames_dropped"] == 0,
@@ -2290,6 +2393,7 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
          ambiguous_within_tolerance={k: sum(a[k] for a in amb) for k in amb[0]} if amb else {},
          tolerance=tol, max_abs_err=max_err,
          score_words_checked=words_checked, accounted=st["accounted"],
+         graph_events_warmup=warm, graph_events_run=run,
          wall_s=wall_s, frames_per_wall_s=n / wall_s, sustained_fps=st["sustained_fps"],
          latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
          stage_p50_ms={k: v["p50_ms"] for k, v in st["stage"].items()},
@@ -2340,7 +2444,7 @@ def phase_sweep(card: str) -> list[dict]:
                                backend=B.FixedBackend(cfg=cfg), device="cpu")
         counts, rates[fmt] = sweep_once(params, source, B.FixedCudaBackend(cfg=cfg),
                                         B.FixedBackend(cfg=cfg), thr, f"sweep {fmt}", card,
-                                        mega, tiler_scores=tiler_scores)
+                                        mega, tiler_scores=tiler_scores, graphed=True)
         runs.append(counts)
     source = SyntheticVideoSource(seed=7, frame_shape=(112, 112), n_frames=SWEEP_FRAMES)
     thr = calibrated_threshold(params, source.frames()[0], fxp.Q16_16)
@@ -2362,14 +2466,15 @@ def phase_sweep(card: str) -> list[dict]:
         params_on(params, "cpu"), fb, backend="fixed", device="cpu")
     thr = calibrated_threshold(params, first, fxp.Q16_16, scores=first_scores)
     counts, _ = sweep_once(params, camera, "fixed_cuda", "fixed", thr, "sweep camera q16_16",
-                           card, mega)
+                           card, mega, graphed=True)
     runs.append(counts)
 
     # the float and int8 backends, held to the same backend's sweep on the
     # CPU within FLOAT_TOL, and to the CPU tiler: cuda_plan a
-    # float_sweep_stage launch a stage and the head's sigmoid_pla, and its
-    # composed cascade beside it; int8 composes
-    per_frame = {("cuda_plan", None): {"float_sweep_stage": 2, "sigmoid_pla": 1},
+    # float_sweep_stage launch a stage and one float_window_head, replayed
+    # from the frame graph, and its composed cascade beside it; int8
+    # composes
+    per_frame = {("cuda_plan", None): {"float_sweep_stage": 2, "float_window_head": 1},
                  ("cuda_plan", False): {"conv2d": 20, "maxpool2d": 2, "sigmoid_pla": 12},
                  ("int8", None): {"quant_matmul": 1}}
     for (name, mk), want_per_frame in per_frame.items():
@@ -2387,7 +2492,8 @@ def phase_sweep(card: str) -> list[dict]:
         label = f"sweep {name}" + (" composed" if mk is False else "")
         counts, rates[label] = sweep_once(params, source, name, name, thr, label, card,
                                           want_per_frame, megakernel=mk,
-                                          tiler_scores=tiler_scores, tol=FLOAT_TOL)
+                                          tiler_scores=tiler_scores, tol=FLOAT_TOL,
+                                          graphed=(name, mk) == ("cuda_plan", None))
         runs.append(counts)
     emit("sweep", path="112x112 frames/s over the wall, every backend this run swept",
          frames_per_wall_s=rates, card=card)
@@ -2578,10 +2684,9 @@ def phase_disagg(card: str) -> list[dict]:
         torch.cuda.synchronize()
         shares.append(launches())
     trunk_share, head_share, miss, hit = shares
-    # the trunk is a float_sweep_stage launch a stage; the head composes (no
-    # window_head on cuda_plan): gather, dense product, then the output
-    # PLAN, the only port kernel of the head
-    expect(trunk_share == {"float_sweep_stage": 2} and head_share == {"sigmoid_pla": 1}
+    # the trunk is a float_sweep_stage launch a stage; the head one
+    # float_window_head launch
+    expect(trunk_share == {"float_sweep_stage": 2} and head_share == {"float_window_head": 1}
            and {k: trunk_share.get(k, 0) + head_share.get(k, 0) for k in miss} == miss
            and hit == head_share,
            f"disagg cuda_plan launches: trunk {trunk_share}, head {head_share}, "
@@ -4039,6 +4144,7 @@ def run(card: str, kind: str, count: int) -> None:
     table["frame_trunk"] = phase_frame_trunk_kernel(card)
     table.update(phase_float_kernels(card))
     table["float_sweep_stage"] = phase_float_sweep_kernel(card)
+    table["float_window_head"] = phase_float_window_head_kernel(card)
 
     from repro_torch.core import backends as B
     from repro_torch.core import fixed_point as fxp

@@ -34,6 +34,7 @@ KERNEL_LAUNCHES: dict[str, str] = {
     "conv2d_direct_kernel": "conv2d",
     "float_smallnet_kernel": "float_smallnet",
     "float_sweep_stage_kernel": "float_sweep_stage",
+    "float_window_head_kernel": "float_window_head",
     "maxpool2d_kernel": "maxpool2d",
     "sigmoid_pla_kernel": "sigmoid_pla",
     "qmm_dp4a_kernel": "quant_matmul",

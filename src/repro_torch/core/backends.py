@@ -27,18 +27,20 @@ Registered backends (the reference's name in brackets where it differs):
     cuda        [pallas] the hand-written float kernels: a served step is
                 one whole-net launch (`net_scores`, `float_smallnet`: both
                 convs, pools, the dense layer and the exact sigmoid) where
-                the kernel takes the images; a swept frame's trunk is two
-                launches, one a stage (`sweep_stage`, `float_sweep_stage`);
-                other batches, and the composed sweep, take the stages:
+                the kernel takes the images; a swept frame is three
+                launches, one a trunk stage (`sweep_stage`,
+                `float_sweep_stage`) and the window head (`window_head`,
+                `float_window_head`); other batches, and the composed
+                sweep, take the stages:
                 the conv with its fused sigmoid epilogue and the max pool
                 (`kernels/conv2d`, `kernels/maxpool2d`), the dense product,
                 and `torch.sigmoid` after it, outside any kernel as in the
                 reference; matches `ref`
     cuda_plan   [pallas_plan] the same with PLAN: one whole-net launch a
-                served step, two a swept frame's trunk; the stages are the
+                served step, three a swept frame; the stages are the
                 conv with the fused PLAN epilogue, the max pool, and the
-                `sigmoid_pla` kernel after the dense layer (and the sweep
-                head's); matches `plan`
+                `sigmoid_pla` kernel after the dense layer (and the composed
+                sweep head's); matches `plan`
     fixed       the bit-faithful Qm.n two's-complement datapath (paper
                 §III-B) in PyTorch word ops — the plain versions of the
                 kernels, on whatever device the tensors live on
@@ -73,8 +75,11 @@ plain version on CPU tensors) for one frame whose maps have even
 extents.  That is routing to the composed stages, not a fallback:
 on valid geometry a build or launch failure raises.  The same holds for
 `net_scores` (the whole net, for the images its kernel takes: `fixed_cuda`,
-`cuda` and `cuda_plan`) and `window_head` (the sweep's head, `fixed_cuda`
-only): every other backend returns None and composes its stages.
+`cuda` and `cuda_plan`) and `window_head` (the sweep's head in one
+launch: `fixed_cuda`, `cuda` and `cuda_plan`, the plain version on CPU
+tensors): every other backend returns None and composes its stages.
+`streaming/fcn_sweep` captures a frame whose route is all these one-launch
+hooks in a CUDA graph and replays it (its module note).
 """
 from __future__ import annotations
 
@@ -87,7 +92,8 @@ from repro_torch.core import fixed_point as fxp
 from repro_torch.core import ptq
 from repro_torch.core.device import as_device_tensor
 from repro_torch.kernels.conv2d.ops import (conv2d, conv2d_plain, float_smallnet,
-                                            float_smallnet_fits, float_sweep_stage)
+                                            float_smallnet_fits, float_sweep_stage,
+                                            float_window_head)
 from repro_torch.kernels.fixed_conv.ops import (fixed_conv2d, fixed_conv2d_plain,
                                                 fixed_maxpool2x2,
                                                 fixed_maxpool2x2_plain,
@@ -290,11 +296,12 @@ class CudaFloatBackend(Backend):
     "sigmoid" (matches `ref`) or "plan" (matches `plan`).  Per served
     step: one whole-net launch (`float_smallnet`) for the images its kernel
     takes.  Per swept frame: one `float_sweep_stage` launch a trunk stage
-    (`sweep_stage`), then the composed head.  Other batches, and the frame
-    sweep's composed cascade, take the stages: the conv with the activation
-    as its fused epilogue, the pool, the dense product and the matching
-    output activation (the `sigmoid_pla` kernel for "plan"); two conv and
-    two pool launches a step, and one `sigmoid_pla` launch with "plan"."""
+    (`sweep_stage`), then one `float_window_head` launch (`window_head`).
+    Other batches, and the frame sweep's composed cascade, take the
+    stages: the conv with the activation as its fused epilogue, the pool,
+    the dense product and the matching output activation (the
+    `sigmoid_pla` kernel for "plan"); two conv and two pool launches a
+    step, and one `sigmoid_pla` launch with "plan"."""
     name: str = "cuda"
     activation: str = "sigmoid"
 
@@ -329,6 +336,12 @@ class CudaFloatBackend(Backend):
             return None
         out = float_sweep_stage(quad, w, b, activation=self.activation)
         return tuple(m[None, ..., None] for m in out)
+
+    def window_head(self, maps, gy, gx, p):
+        # one launch: the features read straight from the maps, the dense
+        # layer and the activation (csrc/float_sweep.cu)
+        return float_window_head(maps, gy, gx, p["dense"]["w"], p["dense"]["b"],
+                                 activation=self.activation)
 
     def conv2x2_same(self, x, w, b):
         return conv2d(x, w, b, padding="SAME")

@@ -1,5 +1,6 @@
 // One stage of the float frame sweep in one launch: the 2x2 SAME conv, the
-// activation and the 2x2/2 max pool of all four role maps, for sm_90a.
+// activation and the 2x2/2 max pool of all four role maps, for sm_90a; and,
+// at the end of the file, the sweep's window head in one launch.
 //
 // Replaces no single pallas_call.  The reference jits the whole cascade of
 // src/repro/streaming/fcn_sweep.py `_sweep_stage` into one XLA program a
@@ -204,4 +205,116 @@ extern "C" int float_sweep_stage_launch(int device, const float* I, const float*
                   : launch<kPlan, false>(I, B, R, C, w, b, out, h, wd, s);
   return level0 ? launch<kSigmoid, true>(I, B, R, C, w, b, out, h, wd, s)
                 : launch<kSigmoid, false>(I, B, R, C, w, b, out, h, wd, s);
+}
+
+// The float frame sweep's window head in one launch: each window's k x k
+// features read straight from the four level-2 role maps, the dense layer
+// and the output activation.
+//
+// Replaces no single pallas_call either: the reference's float head is
+// XLA's gather and matmul, then sigmoid_pla_pallas (kernels/sigmoid_pla/
+// kernel.py) with PLAN; the port composed a stack of the maps, an index
+// gather, torch.matmul (cuBLAS: a sgemm and its split-K reduction), the
+// bias add and the sigmoid_pla launch, six device ops a frame.
+//
+//   inputs   the four (mh, mw) float32 maps [interior, last_row, last_col,
+//            corner]; the windows' pooled offsets gy, gx (Nw,) int32; the
+//            dense w (k*k, N) and b (N,)
+//   output   (Nw, N) float32 scores, the activation applied
+//
+// Design.  A block scores kHeadThreads / N whole windows.  Its threads first
+// stage w, b and each of its windows' k x k features in shared memory, every
+// load independent of the others: feature (i, j) of a window comes from map
+// is_last_row(i) + 2 * is_last_col(j) at the window's offset (the rule of
+// quant_matmul/ops.window_gather_index).  A thread then computes one (window,
+// class) score from shared memory, summed in k order with __fmaf_rn, then + b,
+// then the activation of float_format.cuh.  (A first design read each feature
+// from device memory inside that sum: 49 loads, each waited for in turn, took
+// 6.9 us a 112x112 frame on the H100.)  The N threads of a window read the
+// same features (a broadcast) and consecutive words of w.  The sum's order
+// differs from cuBLAS's, so the scores agree with the composed head within
+// rounding, not bit for bit.
+//
+// Bounds on an H100 SXM (3.35 TB/s), bytes: the maps read once and the
+// scores written once.  112x112 frame (28x28 maps, 144 windows, N 10):
+// 12,544 B of maps, 5,760 B of scores and 3,152 B of params and offsets,
+// 0.0064 us; the launch's latency binds, which a CUDA graph of the whole
+// frame hides.  720x1280 frame (180x320 maps, 13,904 windows): 1,590,992
+// B, 0.47 us, against 49 FMAs a score, 13.6 MFLOP, 0.20 us at 67 TFLOP/s.
+namespace {
+
+constexpr int kHeadThreads = 128;
+constexpr int kHeadSmemFloats = 48 * 1024 / 4;          // static limit, no opt-in
+
+template <int kAct>
+__global__ void __launch_bounds__(kHeadThreads)
+float_window_head_kernel(const float* __restrict__ I, const float* __restrict__ Bm,
+                         const float* __restrict__ R, const float* __restrict__ C,
+                         const int* __restrict__ gy, const int* __restrict__ gx,
+                         const float* __restrict__ w, const float* __restrict__ b,
+                         float* __restrict__ out, int Nw, int mh, int mw, int k, int N) {
+  extern __shared__ float head_smem[];
+  const int K = k * k, per_block = kHeadThreads / N;
+  float* ws = head_smem;
+  float* bs = ws + K * N;
+  float* xs = bs + N;                                  // per_block windows' features
+  const long long w0 = (long long)blockIdx.x * per_block;
+  const int windows = (int)min((long long)per_block, Nw - w0);
+  for (int i = threadIdx.x; i < K * N; i += kHeadThreads) ws[i] = w[i];
+  for (int i = threadIdx.x; i < N; i += kHeadThreads) bs[i] = b[i];
+  for (int i = threadIdx.x; i < windows * K; i += kHeadThreads) {
+    const int r = i / K, e = i - r * K, fi = e / k, fj = e - fi * k;
+    const int y = gy[w0 + r], x = gx[w0 + r];
+    // a window past the maps is the caller's fault: stop the kernel with an
+    // error, as a device-side assert does, rather than read past them
+    if (y < 0 || x < 0 || y > mh - k || x > mw - k) __trap();
+    const bool lr = fi == k - 1, lc = fj == k - 1;
+    const float* m = lr ? (lc ? C : Bm) : (lc ? R : I);
+    xs[i] = m[(long long)(y + fi) * mw + x + fj];
+  }
+  __syncthreads();
+  const int r = threadIdx.x / N, n = threadIdx.x - r * N;
+  if (r >= windows) return;
+  const float* xr = xs + r * K;
+  float acc = 0.0f;
+#pragma unroll 7
+  for (int e = 0; e < K; ++e) acc = __fmaf_rn(xr[e], ws[e * N + n], acc);
+  out[(w0 + r) * N + n] = activate<kAct>(__fadd_rn(acc, bs[n]));
+}
+
+template <int kAct>
+int launch_head(const float* I, const float* Bm, const float* R, const float* C, const int* gy,
+                const int* gx, const float* w, const float* b, float* out, int Nw, int mh,
+                int mw, int k, int N, cudaStream_t stream) {
+  const int per_block = kHeadThreads / N;
+  const unsigned blocks = (unsigned)((Nw + per_block - 1) / per_block);
+  const size_t smem = sizeof(float) * ((size_t)k * k * (N + per_block) + N);
+  float_window_head_kernel<kAct><<<blocks, kHeadThreads, smem, stream>>>(I, Bm, R, C, gy, gx,
+                                                                         w, b, out, Nw, mh,
+                                                                         mw, k, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// float_window_head_launch: the four (mh, mw) float32 role maps, the
+// windows' pooled offsets gy, gx (Nw,) int32, w (k*k, N) and b (N,) ->
+// out (Nw, N) float32, the activation `act` applied (1 the exact sigmoid, 2
+// PLAN).  kShapeUnsupported for N > 128 (a block scores whole windows) and
+// where w, b and the block's features exceed 48 KB of shared memory; a
+// window past the maps traps the kernel.  Nw >= 1.
+extern "C" int float_window_head_launch(int device, const float* I, const float* B,
+                                        const float* R, const float* C, const int* gy,
+                                        const int* gx, const float* w, const float* b,
+                                        float* out, int Nw, int mh, int mw, int k, int N,
+                                        int act, void* stream) {
+  if (Nw < 1 || k < 1 || N < 1 || N > kHeadThreads || k > mh || k > mw ||
+      (long long)k * k * (N + kHeadThreads / N) + N > kHeadSmemFloats ||
+      (act != kSigmoid && act != kPlan))
+    return kShapeUnsupported;
+  cudaSetDevice(device);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return act == kPlan ? launch_head<kPlan>(I, B, R, C, gy, gx, w, b, out, Nw, mh, mw, k, N, s)
+                      : launch_head<kSigmoid>(I, B, R, C, gy, gx, w, b, out, Nw, mh, mw, k, N,
+                                              s);
 }

@@ -93,6 +93,7 @@ SIGNATURES = {
     },
     "float_sweep": {
         "float_sweep_stage_launch": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+        "float_window_head_launch": [_I] + [_P] * 9 + [_I] * 6 + [_P],
     },
     "quant_matmul": {
         "quant_matmul_dp4a_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

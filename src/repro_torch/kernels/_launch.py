@@ -10,11 +10,14 @@ tensor either goes through the kernel or the call raises.
 and nowhere else, so a run can show which kernels its path went through
 (`reset_launches()` before, `launches()` after).  The count is taken under
 a lock: engines started with `VisionEngine.start` step on threads of their
-own.
+own.  Inside `recorded_launches()` a thread's launches are recorded and
+not counted: a CUDA graph's capture enqueues launches the card does not
+run, and each replay of the graph counts them.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 
 import torch
@@ -23,9 +26,28 @@ LAUNCHES: collections.Counter[str] = collections.Counter()
 _LAUNCHES_LOCK = threading.Lock()
 
 
+_RECORDING = threading.local()
+
+
 def count_launch(name: str) -> None:
+    names = getattr(_RECORDING, "names", None)
+    if names is not None:
+        names.append(name)
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Within the block, this thread's `count_launch` calls append their
+    names to the yielded list instead of counting."""
+    names: list[str] = []
+    _RECORDING.names = names
+    try:
+        yield names
+    finally:
+        _RECORDING.names = None
 
 
 def launches() -> dict[str, int]:

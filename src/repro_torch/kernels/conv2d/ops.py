@@ -32,7 +32,11 @@ takes.
 `float_sweep_stage` is one stage of the float frame sweep in one launch of
 `csrc/float_sweep.cu`: the conv, the activation and the 2x2/2 pool of the
 four role maps (`streaming/fcn_sweep._sweep_stage`), with each masked
-weight a choice of taps inside the kernel.
+weight a choice of taps inside the kernel.  `float_window_head` is the
+sweep's head in one launch of the same library: every window's features
+read from the four pooled maps, the dense layer and the activation; its
+plain version is the composed head (stack, gather, `@ w + b`, the
+activation).
 
 The plain versions compute each tap's shifted window times its weights
 with elementwise ops, summed in the kernel's order.  They do not call
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +59,7 @@ from repro_torch.kernels.frame_trunk.ops import (_M_00, _M_01, _M_10, _M_11, _M_
                                                  _M_LEFT, _M_RIGHT, _M_TOP, pool_mix,
                                                  pool_quadrants)
 from repro_torch.kernels.maxpool2d.ops import maxpool2d_plain
+from repro_torch.kernels.quant_matmul.ops import window_gather_index
 
 _ACTIVATIONS = (None, "sigmoid", "plan")
 _ACT_CODE = {None: 0, "sigmoid": 1, "plan": 2}
@@ -313,4 +319,79 @@ def float_sweep_stage(quad, w: torch.Tensor, b: torch.Tensor, *,
                                       _ACT_CODE[activation], stream)
     _build.check(lib, rc, f"float_sweep_stage {h}x{wd} maps")
     count_launch("float_sweep_stage")
+    return out
+
+
+# -- the float frame sweep's window head ----------------------------------------------
+
+def _head_args(maps, gy, gx, w, b, activation) -> int:
+    """Check the float window head's arguments; k, the window's side on the
+    maps."""
+    if activation not in _NET_ACTIVATIONS:
+        raise ValueError(f"activation must be one of {_NET_ACTIVATIONS}")
+    if len(maps) != 4:
+        raise ValueError(f"float_window_head: expected 4 role maps, got {len(maps)}")
+    for name, m in zip("IBRC", maps):
+        require_tensor(f"float_window_head map {name}", m, _F32, ndim=2)
+        if m.shape != maps[0].shape:
+            raise ValueError(f"float_window_head: map {name} {tuple(m.shape)}, "
+                             f"map I {tuple(maps[0].shape)}")
+    require_tensor("float_window_head gy", gy, (torch.int32,), ndim=1)
+    require_tensor("float_window_head gx", gx, (torch.int32,), numel=gy.shape[0])
+    require_tensor("float_window_head w", w, _F32, ndim=2)
+    K, N = w.shape
+    k = math.isqrt(K)
+    if k * k != K or k < 1:
+        raise ValueError(f"float_window_head: w {tuple(w.shape)} is not (k*k, N)")
+    require_tensor("float_window_head b", b, _F32, numel=N)
+    return k
+
+
+def float_window_head_plain(maps, gy: torch.Tensor, gx: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor, *, activation: str = "plan") -> torch.Tensor:
+    """The composed head in torch ops: stack the four maps, gather every
+    window's features (`window_gather_index`), `@ w + b`, the activation.
+    Raises ValueError for a window past the maps."""
+    maps = list(maps)
+    k = _head_args(maps, gy, gx, w, b, activation)
+    h, w_ = maps[0].shape
+    if gy.numel() and (int(gy.min()) < 0 or int(gx.min()) < 0 or int(gy.max()) > h - k
+                       or int(gx.max()) > w_ - k):
+        raise ValueError(f"float_window_head: a window lies outside the {h}x{w_} maps")
+    feats = torch.stack(maps).reshape(-1)[window_gather_index(gy, gx, k, (h, w_))]
+    scores = feats @ w + b
+    return torch.sigmoid(scores) if activation == "sigmoid" else sigmoid_plan_f32(scores)
+
+
+def float_window_head(maps, gy: torch.Tensor, gx: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor, *, activation: str = "plan") -> torch.Tensor:
+    """The float frame sweep's window head in one launch: the four (h, w)
+    float32 role maps [interior, last_row, last_col, corner], the windows'
+    pooled-lattice offsets gy, gx (Nw,) int32, the dense w (k*k, N) and b
+    (N,) -> (Nw, N) float32 scores with the activation ("sigmoid" or
+    "plan").  Every window must lie inside the maps (gy + k <= h, gx + k
+    <= w), as the sweep's positions do: the plain version raises
+    ValueError for one that does not, the kernel stops with a CUDA error
+    (a trap, as `fixed_window_head`'s does).  The kernel takes N <= 128
+    and w within its shared memory (k*k*(N + 128/N) + N floats up to
+    12,288) and raises ValueError for any other; the plain version takes
+    any.  The kernel sums a score in another order than the plain
+    version's matmul: the two agree within rounding."""
+    maps = list(maps)
+    k = _head_args(maps, gy, gx, w, b, activation)
+    if not on_cuda(*maps, gy, gx, w, b):
+        return float_window_head_plain(maps, gy, gx, w, b, activation=activation)
+    Nw, N = gy.shape[0], w.shape[1]
+    out = torch.empty((Nw, N), dtype=torch.float32, device=gy.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("float_sweep")
+    dev, stream = stream_of(gy)
+    mh, mw = maps[0].shape
+    rc = lib.float_window_head_launch(dev, *(m.data_ptr() for m in maps), gy.data_ptr(),
+                                      gx.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), Nw, mh, mw, k, N,
+                                      _ACT_CODE[activation], stream)
+    _build.check(lib, rc, f"float_window_head w {tuple(w.shape)} on {mh}x{mw} maps")
+    count_launch("float_window_head")
     return out

@@ -48,24 +48,44 @@ one index gather, one dense and one sigmoid launch).  All three give the
 same words on the fixed backends; on the float ones `sweep_stage` rounds
 as the composed stage does on the card.  On `fixed_cuda` the default
 route is 2 launches a frame, `frame_trunk` and `fixed_window_head`.  On
-`cuda_plan` it is 3: a `float_sweep_stage` launch a stage
-(`csrc/float_sweep.cu`) and the composed head's `sigmoid_pla` (2 and none
-on `cuda`); its composed route is 20 `conv2d`, 2 `maxpool2d` and 12
-`sigmoid_pla` launches a frame.  `int8` has none of the three hooks and
-composes: 1 `quant_matmul` a frame.
+`cuda_plan` and `cuda` it is 3: a `float_sweep_stage` launch a stage and
+one `float_window_head` (`csrc/float_sweep.cu`); the composed route on
+`cuda_plan` is 20 `conv2d`, 2 `maxpool2d` and 12 `sigmoid_pla` launches a
+frame.  `int8` has none of the three hooks and composes: 1 `quant_matmul`
+a frame.
 
-The reference jits one program per geometry; here the sweep is a plain
-function on tensors, and only the window offsets and gather indices are
-cached, per (geometry, device).  `make_trunk_fn`/`make_head_fn` split the
-same sweep into its two halves for `serving/disagg.py`: the trunk
+The reference jits one program per geometry.  Here `FcnSweep.score`
+captures a frame's whole device program once per geometry as a CUDA graph
+(`_FrameGraph`: the copy of the frame from a pinned host buffer, the
+trunk, the head and the copy of the scores back to a pinned buffer) and
+replays it for each later frame, where the call is eligible: the sweep
+runs on a CUDA device, `megakernel` is not False, the call sweeps one
+(1,H,W,1) frame, the route is all one-launch hooks (`frame_trunk`, or
+`sweep_stage` at both levels, then `window_head`), and `prepare_params`
+returns the caller's own tensors (native params already on the device).
+The rule reads the hooks' results, the frame and the params, nothing
+else: `int8`, `ref`, `plan`, CPU tensors, `megakernel=False` and
+`fixed_cuda` with float params (quantized on every call) run eagerly, as
+every call did before.  The graphs are cached, 8 at most, least recently
+used out, by backend, frame (H, W), patch, positions, `megakernel`,
+device and the params' storage.  A graph reads the caller's param
+storage, so a value written in place shows in the next replay; other
+param tensors are another key.  Graph and eager give the same scores bit
+for bit.  The registry counter `fcn_sweep_graph` (label `event`:
+`capture`, `replay`, `eager`) counts the calls.  Otherwise the sweep is a
+plain function on tensors, and only the window offsets and gather
+indices are cached, per (geometry, device).  `make_trunk_fn`/`make_head_fn` split the same sweep
+into its two halves for `serving/disagg.py`, eagerly: the trunk
 (`_trunk_quad`) and the head (`_head_scores`, on the route `_sweep` takes
 for the same `megakernel`), so a score from a cached quad is the
 monolithic call's word on every route.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import threading
 from typing import Any, ClassVar, Sequence
 
 import numpy as np
@@ -73,11 +93,13 @@ import torch
 
 from repro_torch.core import backends as B
 from repro_torch.core import smallnet
-from repro_torch.core.device import as_device_tensor
+from repro_torch.core.device import as_device_tensor, resolve_device
 from repro_torch.kernels import launches
+from repro_torch.kernels._launch import count_launch, recorded_launches
 from repro_torch.kernels.frame_trunk.ops import pool_mix as _pool_mix
 from repro_torch.kernels.frame_trunk.ops import pool_quadrants as _pool_quadrants
 from repro_torch.kernels.quant_matmul.ops import window_gather_index
+from repro_torch.obs import metrics as M
 from repro_torch.obs import trace as T
 from repro_torch.streaming.sources import Frame
 from repro_torch.streaming.tiler import Tiler, tile_positions
@@ -165,7 +187,8 @@ def _sweep_stage(be: B.Backend, quad, w, b, phases: T.Phases | None = None):
 
 
 def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
-                megakernel: bool | None = None, phases: T.Phases | None = None):
+                megakernel: bool | None = None, phases: T.Phases | None = None,
+                route: list | None = None):
     """Both conv stages of the sweep over one (1,H,W,1) float frame batch:
     the level-2 role-map quad (I, B, R, C), each (1, H/4, W/4) words or
     (1, H/4, W/4, 1) floats.
@@ -173,10 +196,14 @@ def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
     `megakernel`: None tries the backend's `frame_trunk`, and where it
     returns None runs each stage through the backend's `sweep_stage` or,
     where that returns None, composed; True requires the trunk (raising
-    where there is none); False forces the composed cascade."""
+    where there is none); False forces the composed cascade.  `route`,
+    where given, gets the steps taken appended: "frame_trunk", or
+    "sweep_stage" or "composed" a stage."""
     if megakernel is None or megakernel:
         quad = be.frame_trunk(frames, p)
         if quad is not None:
+            if route is not None:
+                route.append("frame_trunk")
             return quad
         if megakernel:
             raise NotImplementedError(
@@ -189,6 +216,8 @@ def _trunk_quad(be: B.Backend, p: dict, frames: torch.Tensor,
     for layer in ("conv1", "conv2"):
         w, b = p[layer]["w"], p[layer]["b"]
         fused = be.sweep_stage(quad, w, b) if megakernel is None else None
+        if route is not None:
+            route.append("composed" if fused is None else "sweep_stage")
         quad = fused if fused is not None else _sweep_stage(be, quad, w, b, phases)
     return quad
 
@@ -241,7 +270,8 @@ def _squeeze_map(x: torch.Tensor) -> torch.Tensor:
 
 
 def _head_scores(be: B.Backend, p: dict, quad, patch: int,
-                 positions: tuple[tuple[int, int], ...], fused: bool = True) -> torch.Tensor:
+                 positions: tuple[tuple[int, int], ...], fused: bool = True,
+                 route: list | None = None) -> torch.Tensor:
     """The sweep's dense-head half: role-map quad + window positions ->
     (Nw, 10) backend-native scores.  Each map is squeezed to (H/4, W/4)
     first, words or NHWC floats alike.  With `fused`, a backend's
@@ -250,14 +280,19 @@ def _head_scores(be: B.Backend, p: dict, quad, patch: int,
     on every other backend, the head composes one gather from the stacked
     maps and the dense head (on `fixed_cuda` one dense and one sigmoid
     launch).  Kept apart from the trunk so that a server that splits the
-    sweep into trunk and head runs the same words."""
+    sweep into trunk and head runs the same words.  `route`, where given,
+    gets "window_head" or "composed" appended."""
     maps = [_squeeze_map(m) for m in quad]
     shape, device = tuple(maps[0].shape), maps[0].device
     if fused:
         gy, gx = _window_origins(patch, positions, shape, device)
         scores = be.window_head(maps, gy, gx, p)
         if scores is not None:
+            if route is not None:
+                route.append("window_head")
             return scores
+    if route is not None:
+        route.append("composed")
     gather = _window_gather(patch, positions, shape, device)
     feats = torch.stack(maps).reshape(-1)[gather]            # (Nw, k*k)
     return smallnet.dense_head(p, feats, backend=be)
@@ -265,20 +300,144 @@ def _head_scores(be: B.Backend, p: dict, quad, patch: int,
 
 def _sweep(be: B.Backend, params: Any, frame: torch.Tensor, patch: int,
            positions: tuple[tuple[int, int], ...],
-           megakernel: bool | None, phases: T.Phases | None = None) -> torch.Tensor:
+           megakernel: bool | None, phases: T.Phases | None = None,
+           route: list | None = None) -> torch.Tensor:
     """params + (1,H,W,1) float frame -> (n_windows, 10) scores on the
     frame's device.  A traced sweep's `phases` runs "masks" over the
     params' preparation, "trunk" and "masks" through `_trunk_quad`, and
-    "head" over the head."""
+    "head" over the head.  `route` collects the steps taken, as
+    `_trunk_quad` and `_head_scores` name them, after "new_params" where
+    `prepare_params` did not return the caller's own tensors."""
     if phases is not None:
         phases.to("masks")
     p = be.prepare_params(params, frame.device)
+    if route is not None:
+        mine, theirs = B.tree_leaves(p), B.tree_leaves(params)
+        if len(mine) != len(theirs) or any(a is not b for a, b in zip(mine, theirs)):
+            route.append("new_params")
     if phases is not None:
         phases.to("trunk")
-    quad = _trunk_quad(be, p, frame, megakernel, phases)
+    quad = _trunk_quad(be, p, frame, megakernel, phases, route)
     if phases is not None:
         phases.to("head")
-    return _head_scores(be, p, quad, patch, positions, fused=megakernel is not False)
+    return _head_scores(be, p, quad, patch, positions, fused=megakernel is not False,
+                        route=route)
+
+
+# -- the frame graph: one geometry's device program, captured once -------------------
+
+_GRAPH_ROUTES = (["frame_trunk", "window_head"], ["sweep_stage", "sweep_stage", "window_head"])
+_GRAPHS_MAX = 8                  # geometries kept, least recently used out
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass
+class _FrameGraph:
+    """A swept frame's device program as one CUDA graph: the copy of the
+    pinned `frame_in` to the card, the trunk, the head and the copy of the
+    scores to the pinned `scores_out`.  `launches` are the port's kernels
+    in it; `holds` keeps alive what it reads (the params, the windows'
+    offsets, its device buffers).  `lock` covers a replay from the copy in
+    to the copy out, so two threads never share the staging buffers."""
+    graph: Any
+    device: torch.device
+    frame_in: torch.Tensor
+    scores_out: torch.Tensor
+    launches: tuple[str, ...]
+    holds: tuple
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+    def replay(self, frame, phases: T.Phases | None = None) -> np.ndarray:
+        """One (1,H,W,1) frame (an array, or a tensor on any device) ->
+        (n_windows, N) scores, a fresh host array.  The graph runs on the
+        caller's current stream.  A traced call's `phases` runs "trunk"
+        over the staging copy and the replay, "device_wait" over the
+        synchronisation and the copy out."""
+        with self.lock:
+            if isinstance(frame, torch.Tensor):
+                self.frame_in.copy_(frame)
+            else:
+                np.copyto(self.frame_in.numpy(), frame, casting="unsafe")
+            self.graph.replay()
+            if phases is not None:
+                phases.to("device_wait")
+            torch.cuda.current_stream(self.device).synchronize()
+            out = self.scores_out.numpy().copy()
+        for name in self.launches:
+            count_launch(name)
+        return out
+
+
+def _sweep_device(frames, device) -> torch.device:
+    """Where the sweep runs: a tensor's own device unless `device` names
+    another; a CUDA device with its index."""
+    if isinstance(frames, torch.Tensor) and device is None:
+        dev = frames.device
+    else:
+        dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _graph_key(be: B.Backend, params: Any, shape: tuple[int, int], patch: int,
+               positions: tuple[tuple[int, int], ...], megakernel: bool | None,
+               device: torch.device):
+    """The frame graph's cache key; None where a leaf of `params` is not a
+    tensor on `device` (then `prepare_params` makes new tensors, and the
+    call is not eligible).  `megakernel` is part of it: True raises where
+    None takes the stage hooks."""
+    leaves = []
+    for leaf in B.tree_leaves(params):
+        if not isinstance(leaf, torch.Tensor) or leaf.device != device:
+            return None
+        leaves.append((leaf.data_ptr(), leaf.dtype, tuple(leaf.shape)))
+    return be, shape, patch, positions, megakernel, device, tuple(leaves)
+
+
+def _cached_graph(key) -> _FrameGraph | None:
+    with _GRAPHS_LOCK:
+        graph = _GRAPHS.get(key)
+        if graph is not None:
+            _GRAPHS.move_to_end(key)
+        return graph
+
+
+def _capture(key, be: B.Backend, params: Any, patch: int,
+             positions: tuple[tuple[int, int], ...], megakernel: bool | None,
+             scores: torch.Tensor) -> bool:
+    """Capture the frame program of `key`'s geometry and params after an
+    eager call that took an all-hook route with the caller's own params
+    and gave `scores`, and cache it; False where another thread did so
+    first.  A failed capture raises."""
+    _, (H, W), _, _, _, device, _ = key
+    with _CAPTURE_LOCK:
+        if _cached_graph(key) is not None:
+            return False
+        p = be.prepare_params(params, device)
+        frame_in = torch.empty((1, H, W, 1), dtype=torch.float32, pin_memory=True)
+        scores_out = torch.empty(tuple(scores.shape), dtype=scores.dtype, pin_memory=True)
+        frame = torch.empty((1, H, W, 1), dtype=torch.float32, device=device)
+        offsets = _window_origins(patch, positions, (H // _POOL, W // _POOL), device)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with recorded_launches() as names, torch.inference_mode(), \
+                torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            frame.copy_(frame_in, non_blocking=True)
+            quad = _trunk_quad(be, p, frame, megakernel)
+            head = _head_scores(be, p, quad, patch, positions)
+            scores_out.copy_(head, non_blocking=True)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        entry = _FrameGraph(graph, device, frame_in, scores_out, tuple(names),
+                            (frame, head, offsets, p, stream))
+        with _GRAPHS_LOCK:
+            _GRAPHS[key] = entry
+            while len(_GRAPHS) > _GRAPHS_MAX:
+                _GRAPHS.popitem(last=False)
+    return True
 
 
 @functools.lru_cache(maxsize=32)
@@ -401,17 +560,25 @@ class FcnSweep(Tiler):
               parent_span: T.Span | None = None) -> np.ndarray:
         """One full-frame trunk pass + windowed dense head on `device`
         (default "cuda"): (1, H, W, 1) frame -> (n_windows, 10)
-        backend-native scores, in `positions` order.
+        backend-native scores, in `positions` order, a fresh host array.
+        An eligible call (the module note) replays the frame graph of its
+        geometry and params, capturing it first where there is none yet;
+        any other call runs the sweep eagerly.
 
         With tracing on, the call is one "score" span (under `parent_span`,
         the pipeline's frame, when given), tagged with the csrc `launches`
-        it made (exact while one thread launches at a time), and split into
-        children: "trunk" (the frame's upload and the trunk's launches),
-        "masks" (the params' preparation and each composed stage's masked
-        weights; only the preparation where a backend's `frame_trunk` or
-        `sweep_stage` takes the stages), "head" and "device_wait" (the copy
-        back, which waits for the card).  Masks and trunk come in several
-        spans a frame."""
+        it made (exact while one thread launches at a time; a replay counts
+        the kernels captured in it) and with `graph` ("capture", "replay"
+        or "eager", as the `fcn_sweep_graph` counter), and split into
+        children.  Eagerly: "trunk" (the frame's upload and the trunk's
+        launches), "masks" (the params' preparation and each composed
+        stage's masked weights; only the preparation where a backend's
+        `frame_trunk` or `sweep_stage` takes the stages), "head" and
+        "device_wait" (the copy back, which waits for the card; the capture
+        too, on the call that captures); masks and trunk come in several
+        spans a frame.  A replay has no "masks" or "head": "trunk" (the
+        staging copy and the replay) and "device_wait" (the
+        synchronisation and the copy out)."""
         tr = T.get()
         ph = None
         if tr is not None:
@@ -421,6 +588,33 @@ class FcnSweep(Tiler):
             ph = T.Phases(tr, sp, "trunk", sp.t_start)
         be = B.get_backend(backend)
         _check_saturation(be)
+        dev = _sweep_device(frames, device)
+        shape = tuple(frames.shape) if hasattr(frames, "shape") else np.shape(frames)
+        shape = (1, *shape) if len(shape) == 3 else shape
+        key = None
+        if (dev.type == "cuda" and self.megakernel is not False and len(shape) == 4
+                and shape[0] == 1 and shape[3] == 1):
+            key = _graph_key(be, params, shape[1:3], self.patch,
+                             tuple(self.positions(shape[1:3])), self.megakernel, dev)
+        graph = _cached_graph(key) if key is not None else None
+        if graph is not None:
+            event, out = "replay", graph.replay(frames, ph)
+        else:
+            event, out = self._eager(be, params, frames, device, key, ph)
+        M.REGISTRY.counter("fcn_sweep_graph", event=event).inc()
+        if ph is None:
+            return out
+        t_end = ph.end()
+        sp.tags["launches"] = sum(launches().values()) - n0
+        sp.tags["graph"] = event
+        tr.end_at(sp, t_end)
+        return out
+
+    def _eager(self, be: B.Backend, params: Any, frames, device, key,
+               ph: T.Phases | None) -> tuple[str, np.ndarray]:
+        """The sweep op by op; then, where `key` is given and the call took
+        an all-hook route with the caller's own params, the capture of its
+        graph.  -> ("capture" or "eager", the scores)."""
         frames = as_device_tensor(frames, device, dtype=torch.float32)
         if frames.ndim == 3:
             frames = frames[None]
@@ -429,16 +623,16 @@ class FcnSweep(Tiler):
                 f"FcnSweep.score takes one frame per call (the sweep is a "
                 f"per-frame device program), got batch {frames.shape[0]}")
         pos = tuple(self.positions((frames.shape[1], frames.shape[2])))
+        route = [] if key is not None else None
         with torch.inference_mode():
-            scores = _sweep(be, params, frames, self.patch, pos, self.megakernel, ph)
-        if ph is None:
-            return scores.cpu().numpy()
-        ph.to("device_wait")
+            scores = _sweep(be, params, frames, self.patch, pos, self.megakernel, ph, route)
+        if ph is not None:
+            ph.to("device_wait")
         out = scores.cpu().numpy()
-        t_end = ph.end()
-        sp.tags["launches"] = sum(launches().values()) - n0
-        tr.end_at(sp, t_end)
-        return out
+        if key is not None and route in _GRAPH_ROUTES and _capture(
+                key, be, params, self.patch, pos, self.megakernel, scores):
+            return "capture", out
+        return "eager", out
 
     def _masses(self, tiles: np.ndarray,
                 positions: Sequence[tuple[int, int]]) -> np.ndarray:

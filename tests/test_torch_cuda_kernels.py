@@ -9,9 +9,9 @@ activations; `fixed_dense` on its rows and generic routes;
 `fixed_window_head` at 112x112, 56x84 and 1080x1920 frames; the tiled
 `conv2d` at its tile edges, and the direct kernel it keeps for convs no
 tile fits; `float_sweep_stage`, the float sweep's stage in one launch,
-against its plain version, and the float sweep's default route against
-its composed cascade at 28x28, 112x112 and 720x1280 with both
-activations.
+against its plain version, and the float sweep's default route (its
+window head in one `float_window_head` launch) against its composed
+cascade at 28x28, 112x112 and 720x1280 with both activations.
 Tolerances: Qm.n words, max-pooled floats, PLAN floats and quant_matmul's
 int32 sums must be equal (0); the float conv within rtol = atol = 2e-5
 (nvcc contracts its multiply-adds into FMAs, and its sigmoid is
@@ -454,18 +454,20 @@ def test_float_sweep_stage_matches_plain_on_card(cuda, activation, h, w):
 
 @pytest.mark.parametrize("shape", [(28, 28), (112, 112), (720, 1280)])
 @pytest.mark.parametrize("backend,plain,default,composed", [
-    ("cuda_plan", "plan", {"float_sweep_stage": 2, "sigmoid_pla": 1},
+    ("cuda_plan", "plan", {"float_sweep_stage": 2, "float_window_head": 1},
      {"conv2d": 20, "maxpool2d": 2, "sigmoid_pla": 12}),
-    ("cuda", "ref", {"float_sweep_stage": 2}, {"conv2d": 20, "maxpool2d": 2}),
+    ("cuda", "ref", {"float_sweep_stage": 2, "float_window_head": 1},
+     {"conv2d": 20, "maxpool2d": 2}),
 ])
 def test_float_sweep_routes_match_on_card(cuda, shape, backend, plain, default, composed):
     """The float sweep's default route (one `float_sweep_stage` launch a
-    stage, the composed head) against the composed cascade
+    stage, one `float_window_head`) against the composed cascade
     (`megakernel=False`) on the card: role maps and window scores within
-    SWEEP_TOL, 2e-5 (the kernel rounds as the cascade does, so the aim is
-    0); both within 2e-5 of the plain sweep on the CPU; 3 launches a frame
-    on the default route and 34 on the composed one on `cuda_plan` (2 and
-    22 on `cuda`, whose head's sigmoid is torch's)."""
+    SWEEP_TOL, 2e-5 (the stage kernel rounds as the cascade does, the head
+    sums in another order than cuBLAS); both within 2e-5 of the plain
+    sweep on the CPU; 3 launches a frame on the default route on both
+    backends, and 34 on the composed one on `cuda_plan` (22 on `cuda`,
+    whose composed head's sigmoid is torch's)."""
     from repro_torch.streaming import FcnSweep, SyntheticVideoSource
     from repro_torch.streaming import fcn_sweep as fs
     params = _float_params(7)

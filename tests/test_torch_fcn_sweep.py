@@ -33,6 +33,7 @@ from repro_torch.core import smallnet as tsn  # noqa: E402
 from repro_torch.core.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.quant_matmul import ops as D  # noqa: E402
+from repro_torch.obs import metrics as M  # noqa: E402
 from repro_torch.obs import recorder as R  # noqa: E402
 from repro_torch.obs import trace as T  # noqa: E402
 from repro_torch.streaming import fcn_sweep as tfs  # noqa: E402
@@ -311,12 +312,19 @@ def test_sweep_head_route_follows_megakernel(frame112):
                                                               device="cpu")
         assert calls == [len(pos)] * n_calls
         np.testing.assert_array_equal(got, want)
-    for name in ("fixed", "ref", "cuda_plan", "int8"):
+    for name in ("fixed", "ref", "plan", "int8"):
         be = TB.get_backend(name)
         z = torch.zeros((7, 7), dtype=torch.int32)
         assert be.window_head([z] * 4, torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1, dtype=torch.int32),
                               be.prepare_params(params, "cpu")) is None
+    for name in ("cuda", "cuda_plan"):       # the float head in one launch
+        be = TB.get_backend(name)
+        z = torch.zeros((7, 7), dtype=torch.float32)
+        got = be.window_head([z] * 4, torch.zeros(1, dtype=torch.int32),
+                             torch.zeros(1, dtype=torch.int32),
+                             be.prepare_params(params, "cpu"))
+        assert got.shape == (1, 10) and got.dtype == torch.float32
     with pytest.raises(ValueError, match="outside"):
         tfs._window_origins(28, ((0, 0), (88, 4)), (28, 28), torch.device("cpu"))
     z = torch.zeros((28, 28), dtype=torch.int32)
@@ -389,3 +397,74 @@ def test_untraced_score_records_nothing(frame112):
     fb, _ = sw.extract(frame112)
     sw.score(params_from_jax(numpy_params(), "cpu"), fb, backend="fixed", device="cpu")
     assert len(tr.recorder) == 0
+
+
+_OWN = ["sweep_stage", "sweep_stage", "window_head"]
+
+
+@pytest.mark.parametrize("backend,native,megakernel,route,graphed", [
+    ("cuda_plan", True, None, _OWN, True),
+    ("cuda", True, None, _OWN, True),
+    ("fixed_cuda", True, None, ["frame_trunk", "window_head"], True),
+    ("fixed_cuda", True, True, ["frame_trunk", "window_head"], True),
+    ("fixed_cuda", False, None, ["new_params", "frame_trunk", "window_head"], False),
+    ("fixed", True, None, ["frame_trunk", "composed"], False),
+    ("cuda_plan", True, False, ["composed"] * 3, False),
+    ("fixed_cuda", True, False, ["composed"] * 3, False),
+    ("int8", False, None, ["new_params"] + ["composed"] * 3, False),
+    ("plan", True, None, ["composed"] * 3, False),
+])
+def test_graph_rule_reads_the_route(frame112, backend, native, megakernel, route, graphed):
+    """The frame graph's rule reads the route the eager sweep took: all
+    one-launch hooks with the caller's own params engage it (on a CUDA
+    device); the composed route, `int8`, `plan` and `fixed_cuda` with float
+    params (quantized on every call) do not.  On CPU tensors every call is
+    eager, and the `fcn_sweep_graph` counter and the span's `graph` tag
+    say so."""
+    be = TB.get_backend(backend)
+    params = params_from_jax(numpy_params(), "cpu")
+    if native:
+        params = be.prepare_params(params, "cpu")
+    sw = FcnSweep(stride=8, megakernel=megakernel)
+    fb, pos = sw.extract(frame112)
+    got = []
+    with torch.inference_mode():
+        tfs._sweep(be, params, torch.from_numpy(fb), 28, tuple(pos), megakernel, route=got)
+    assert got == route and (got in tfs._GRAPH_ROUTES) == graphed
+    # the CPU is never graphed: no key, and every call counts as eager
+    assert tfs._graph_key(be, params, (112, 112), 28, tuple(pos), megakernel,
+                          torch.device("cpu")) is not None
+    counter = M.REGISTRY.counter("fcn_sweep_graph", event="eager")
+    n0 = counter.value
+    tr = T.enable(capacity=64)
+    try:
+        sw.score(params, fb, backend=be, device="cpu")
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+    sw.score(params, fb, backend=be, device="cpu")
+    assert counter.value == n0 + 2
+    (score,) = [s for s in spans if s.name == "score"]
+    assert score.tags["graph"] == "eager"
+
+
+def test_graph_key_needs_tensors_on_the_sweeps_device(frame112):
+    """A param leaf that is not a tensor on the sweep's device gives no key:
+    `prepare_params` would make new tensors of it."""
+    be = TB.get_backend("cuda_plan")
+    pos = tuple(FcnSweep(stride=8).positions((112, 112)))
+    cpu = torch.device("cpu")
+    params = params_from_jax(numpy_params(), "cpu")
+    key = tfs._graph_key(be, params, (112, 112), 28, pos, None, cpu)
+    assert key == tfs._graph_key(be, params, (112, 112), 28, pos, None, cpu)
+    assert tfs._graph_key(be, numpy_params(), (112, 112), 28, pos, None, cpu) is None
+    assert tfs._graph_key(be, params, (112, 112), 28, pos, None,
+                          torch.device("meta")) is None
+    other = {k: {n: t.clone() for n, t in v.items()} for k, v in params.items()}
+    assert tfs._graph_key(be, other, (112, 112), 28, pos, None, cpu) != key
+    assert tfs._graph_key(TB.get_backend("cuda"), params, (112, 112), 28, pos, None,
+                          cpu) != key
+    # megakernel=True raises on the float backends where None takes the hooks
+    assert tfs._graph_key(be, params, (112, 112), 28, pos, True, cpu) != key
+    assert tfs._sweep_device(torch.zeros(1), None) == cpu
+    assert tfs._sweep_device(np.zeros(1), "cpu") == cpu

@@ -20,6 +20,8 @@ against the reference's `smallnet.apply`, and `FcnSweep` on `plan` and
 one-launch sweep stage's plain version (`float_sweep_stage_plain`) equals
 the composed `_sweep_stage` on `plan` and `ref` float for float, and the
 `cuda_plan` sweep on CPU tensors gives `plan`'s scores on both routes.
+The one-launch float head's plain version (`float_window_head_plain`)
+equals the composed head exactly, and the reference's sweep within 2e-5.
 """
 import numpy as np
 import pytest
@@ -41,6 +43,7 @@ from repro_torch.core import smallnet as tsn  # noqa: E402
 from repro_torch.core.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.conv2d import float_sweep_stage, float_sweep_stage_plain  # noqa: E402
+from repro_torch.kernels.conv2d import float_window_head, float_window_head_plain  # noqa: E402
 from repro_torch.serving.vision_engine import VisionEngine  # noqa: E402
 from repro_torch.streaming import FcnSweep, SyntheticVideoSource, Tiler  # noqa: E402
 from repro_torch.streaming import fcn_sweep as tfs  # noqa: E402
@@ -294,3 +297,64 @@ def test_sweep_stage_hook_only_on_the_float_kernel_backends(data, frame112):
         float_sweep_stage((x.double(),) * 4, w, b)
     with pytest.raises(ValueError, match="activation"):
         float_sweep_stage((x,) * 4, w, b, activation=None)
+
+
+@pytest.mark.parametrize("shape", [(112, 112), (60, 44)])
+@pytest.mark.parametrize("backend,activation", [("plan", "plan"), ("ref", "sigmoid")])
+def test_float_window_head_plain_equals_composed_head(data, frame112, shape, backend,
+                                                      activation):
+    """The one-launch float head's plain version gives the composed head's
+    scores exactly (`_head_scores(fused=False)`: the same stack, gather,
+    product and activation on the CPU), and the reference's float sweep
+    scores within SWEEP_TOL; the wrapper takes it on CPU tensors, and so
+    does the `cuda`/`cuda_plan` sweep's head hook."""
+    params, _, _ = data
+    tp = params_from_jax(params, "cpu")
+    be = TB.get_backend(backend)
+    fb = _stage_frame(shape, frame112)
+    sw = FcnSweep(stride=8)
+    pos = tuple(sw.positions(shape))
+    quad = tfs._trunk_quad(be, tp, fb)
+    maps = [m[0, ..., 0] for m in quad]
+    gy, gx = tfs._window_origins(28, pos, tuple(maps[0].shape), torch.device("cpu"))
+    w, b = tp["dense"]["w"], tp["dense"]["b"]
+    got = float_window_head_plain(maps, gy, gx, w, b, activation=activation)
+    want = tfs._head_scores(be, tp, quad, 28, pos, fused=False)
+    assert got.shape == (len(pos), 10) and torch.equal(got, want)
+    reset_launches()
+    assert torch.equal(float_window_head(maps, gy, gx, w, b, activation=activation), got)
+    cuda_be = TB.get_backend("cuda_plan" if activation == "plan" else "cuda")
+    assert torch.equal(tfs._head_scores(cuda_be, tp, quad, 28, pos), got)
+    assert launches() == {}                   # plain versions launch nothing
+    jscores = jfs.FcnSweep(stride=8).score(params, fb.numpy(), backend=backend)
+    np.testing.assert_allclose(got.numpy(), jscores, **SWEEP_TOL)
+
+
+def test_float_window_head_checks_its_arguments(data):
+    """Bad shapes, dtypes and activations raise, and so does a window past
+    the maps (the plain version's check; the kernel traps)."""
+    tp = params_from_jax(data[0], "cpu")
+    w, b = tp["dense"]["w"], tp["dense"]["b"]
+    z = torch.zeros((28, 28), dtype=torch.float32)
+    g = torch.zeros(2, dtype=torch.int32)
+    assert float_window_head([z] * 4, g, g, w, b).shape == (2, 10)
+    bad = [
+        (ValueError, "expected 4 role maps", ([z] * 3, g, g, w, b)),
+        (ValueError, "map B", ([z, z[:27].contiguous(), z, z], g, g, w, b)),
+        (TypeError, "float32", ([z.double()] * 4, g, g, w, b)),
+        (ValueError, "expected 2 dims", ([z[None]] * 4, g, g, w, b)),
+        (TypeError, "int32", ([z] * 4, g.long(), g, w, b)),
+        (ValueError, "expected 2 words", ([z] * 4, g, g[:1], w, b)),
+        (ValueError, "is not \\(k\\*k, N\\)", ([z] * 4, g, g, w[:48].contiguous(), b)),
+        (ValueError, "expected 10 words", ([z] * 4, g, g, w, b[:9])),
+        (ValueError, "contiguous", ([z.t()] * 4, g, g, w, b)),
+    ]
+    for err, match, args in bad:
+        with pytest.raises(err, match=match):
+            float_window_head(*args)
+    with pytest.raises(ValueError, match="activation"):
+        float_window_head([z] * 4, g, g, w, b, activation=None)
+    for y, x in ((22, 0), (0, 22), (-1, 0), (0, -1)):
+        with pytest.raises(ValueError, match="outside"):
+            float_window_head([z] * 4, torch.tensor([0, y], dtype=torch.int32),
+                              torch.tensor([0, x], dtype=torch.int32), w, b)
