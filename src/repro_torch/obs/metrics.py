@@ -29,8 +29,8 @@ NEAREST-RANK — the smallest sample whose cumulative fraction reaches q% —
 so a reported p99 is always a sample that actually occurred, never an
 interpolated value between two (np.percentile's default linear
 interpolation invents latencies nobody measured, and did so differently
-in the engine vs the pipeline).  `serving/vision_engine.latency_stats`
-routes through it.
+in the engine vs the pipeline).  `summarize_latency`, which every
+server's `stats()` calls, routes through it.
 
 Thread model: instrument mutation is a single `+=` / `append` under the
 GIL and every serving-stack caller already holds its component lock at

@@ -67,7 +67,7 @@ import dataclasses
 import hashlib
 import threading
 import time
-from typing import Any, Callable, Iterable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -76,6 +76,7 @@ from repro_torch.core import backends as B
 from repro_torch.core.device import as_device_tensor, resolve_device
 from repro_torch.obs import metrics as M
 from repro_torch.obs import trace as T
+from repro_torch.serving.ledger import RequestLedger, ServingQueue
 from repro_torch.streaming import fcn_sweep as fs
 from repro_torch.streaming.sources import Frame
 
@@ -358,99 +359,52 @@ class StageResult:
         return self.deadline is None or self.t_done <= self.deadline
 
 
-class StageEngine:
+class StageEngine(ServingQueue):
     """One disagg-stage replica: a continuously-served queue over an
     arbitrary compute callable (trunk: frame batch -> role-map quad; head:
     quad -> window scores).
 
-    The serving discipline is `VisionEngine`'s, specialized to one request
-    per step (the trunk megakernel is a batch-1 program; a head request
-    already carries its whole window lattice): bounded intake
-    (`max_queue`, shed reason "queue_depth"), deadline shedding at
-    batch-forming time ("deadline"), fault containment (a raising compute
-    sheds its request as "fault" and kills the serving thread — the
-    `DisaggServer` fails the work over to a sibling replica), a
-    deterministic `min_step_s` service floor for overload harnesses, and
-    registry-backed accounting with the engine ledger invariant
+    The serving discipline is `VisionEngine`'s (`serving/ledger.py`'s
+    `ServingQueue`), specialized to one request per step (the trunk
+    megakernel is a batch-1 program; a head request already carries its
+    whole window lattice): bounded intake (`max_queue`, shed reason
+    "queue_depth"), deadline shedding at batch-forming time ("deadline"),
+    fault containment (a raising compute sheds its request as "fault" and
+    kills the replica in both serving modes — the `DisaggServer` fails the
+    work over to a sibling replica), a deterministic `min_step_s` service
+    floor for overload harnesses, and registry-backed accounting with the
+    engine ledger invariant
 
         submitted == served + shed + pending
 
     Throughput is measured over BUSY time; `service_rate_qps()` is the
     observed rate (None before history) and `seed_rate_qps()` the
     deterministic floor-derived rate — the dispatch signals the disagg
-    router shares with `serving/router.py`.
+    router shares with `serving/router.py`.  Once it faulted, `wait`
+    returns when nothing is queued or in flight, resolved or not.
     """
+
+    _Request = StageRequest
+    _noun = "stage requests"
 
     def __init__(self, compute: Callable[[Any], Any], *, name: str,
                  min_step_s: float = 0.0, max_queue: int | None = None):
         self._compute = compute
         self.name = name
-        self.min_step_s = float(min_step_s)
-        self.max_queue = None if max_queue is None else int(max_queue)
-        self._cond = threading.Condition()
-        self._queue: collections.deque[StageRequest] = collections.deque()
-        self._results: dict[int, StageResult] = {}
-        self._shed: dict[int, str] = {}
-        self._next_uid = 0
-        self._in_flight = 0
-        self._thread: threading.Thread | None = None
-        self._stop_flag = False
-        self._fault: BaseException | None = None
         self._id = M.instance_label(f"stage-{name}")
-        reg = M.REGISTRY
-        labels = {"stage": self._id}
-        self._m_submitted = reg.counter("stage_submitted", **labels)
-        self._m_served = reg.counter("stage_served", **labels)
-        self._m_shed: dict[str, M.Counter] = {}
-        self._m_busy = reg.counter("stage_busy_seconds", **labels)
-        self._m_queue = reg.gauge("stage_queue_depth", **labels)
-        self._lat_hist = reg.histogram("stage_latency_seconds", **labels)
+        super().__init__("stage", {"stage": self._id}, max_queue=max_queue,
+                         min_step_s=min_step_s,
+                         thread_name=f"stage-engine-{name}")
 
-    # -- request side -------------------------------------------------------
+    def _trace_id(self, uid: int, parent_span: Any) -> str:
+        return (parent_span.trace_id if parent_span is not None
+                else f"stage-{self._id}-{uid}")
 
-    def submit(self, payload: Any, *, deadline_ms: float | None = None,
-               t_submit: float | None = None, parent_span: Any = None) -> int:
-        with self._cond:
-            uid = self._next_uid
-            self._next_uid += 1
-            self._m_submitted.inc()
-            now = time.perf_counter() if t_submit is None else float(t_submit)
-            if self._fault is not None:
-                self._shed_locked(uid, "fault", now, now,
-                                  parent_span=parent_span)
-            elif (self.max_queue is not None
-                    and len(self._queue) >= self.max_queue):
-                self._shed_locked(uid, "queue_depth", now, now,
-                                  parent_span=parent_span)
-            else:
-                deadline = (now + deadline_ms / 1e3
-                            if deadline_ms is not None else None)
-                self._queue.append(StageRequest(
-                    uid=uid, payload=payload, t_submit=now,
-                    deadline=deadline, parent_span=parent_span))
-                self._m_queue.set(len(self._queue))
-                self._cond.notify_all()
-            return uid
-
-    def _shed_locked(self, uid: int, reason: str, t_submit: float,
-                     t_end: float, *, parent_span: Any = None) -> None:
-        self._shed[uid] = reason
-        c = self._m_shed.get(reason)
-        if c is None:
-            c = M.REGISTRY.counter("stage_shed", reason=reason,
-                                   stage=self._id)
-            self._m_shed[reason] = c
-        c.inc()
-        tr = T.get()
-        if tr is not None:
-            tid = (parent_span.trace_id if parent_span is not None
-                   else f"stage-{self._id}-{uid}")
-            tr.emit("stage_request", tid, t_submit, t_end,
-                    f"shed:{reason}", parent=parent_span, uid=uid,
-                    stage=self._id)
-        self._cond.notify_all()
-
-    # -- serving side -------------------------------------------------------
+    def _shed_span(self, tr, uid: int, reason: str, t_submit: float,
+                   t_end: float, parent_span: Any, queued: bool) -> None:
+        tr.emit("stage_request", self._trace_id(uid, parent_span), t_submit,
+                t_end, f"shed:{reason}", parent=parent_span, uid=uid,
+                stage=self._id)
 
     def step(self) -> int:
         """Serve ONE request (shedding expired ones in passing); returns
@@ -485,10 +439,7 @@ class StageEngine:
                                   time.perf_counter(),
                                   parent_span=req.parent_span)
             raise
-        t_done = time.perf_counter()
-        if self.min_step_s > 0.0 and t_done - t0 < self.min_step_s:
-            time.sleep(self.min_step_s - (t_done - t0))
-            t_done = time.perf_counter()     # the floor IS the service time
+        t_done = self._held_to_floor(t0, time.perf_counter())
         with self._cond:
             res = StageResult(uid=req.uid, value=value,
                               t_submit=req.t_submit, t_done=t_done,
@@ -501,161 +452,37 @@ class StageEngine:
             self._cond.notify_all()
         tr = T.get()
         if tr is not None:
-            tid = (req.parent_span.trace_id if req.parent_span is not None
-                   else f"stage-{self._id}-{req.uid}")
-            tr.emit("stage_request", tid, req.t_submit, t_done, "served",
-                    parent=req.parent_span, uid=req.uid, stage=self._id)
+            tr.emit("stage_request", self._trace_id(req.uid, req.parent_span),
+                    req.t_submit, t_done, "served", parent=req.parent_span,
+                    uid=req.uid, stage=self._id)
         return 1
-
-    def start(self) -> "StageEngine":
-        with self._cond:
-            if self._thread is not None:
-                return self
-            self._stop_flag = False
-            self._thread = threading.Thread(
-                target=self._serve_loop, daemon=True,
-                name=f"stage-engine-{self.name}")
-            self._thread.start()
-        return self
-
-    def _serve_loop(self) -> None:
-        while True:
-            with self._cond:
-                while not self._queue and not self._stop_flag:
-                    self._cond.wait(timeout=0.05)
-                if self._stop_flag and not self._queue:
-                    return
-            try:
-                self.step()
-            except Exception as e:   # noqa: BLE001 — any fault kills serving
-                with self._cond:
-                    self._fault = e
-                    now = time.perf_counter()
-                    while self._queue:
-                        r = self._queue.popleft()
-                        self._shed_locked(r.uid, "fault", r.t_submit, now,
-                                          parent_span=r.parent_span)
-                    self._cond.notify_all()
-                return
-
-    def stop(self, drain: bool = True) -> None:
-        with self._cond:
-            thread = self._thread
-            self._stop_flag = True
-            if not drain:
-                now = time.perf_counter()
-                while self._queue:
-                    r = self._queue.popleft()
-                    self._shed_locked(r.uid, "stopped", r.t_submit, now,
-                                      parent_span=r.parent_span)
-            self._cond.notify_all()
-        if thread is not None:
-            thread.join(timeout=60.0)
-            with self._cond:
-                self._thread = None
-                self._stop_flag = False
-
-    # -- client / signals ---------------------------------------------------
-
-    @property
-    def fault(self) -> BaseException | None:
-        return self._fault
-
-    def load(self) -> int:
-        with self._cond:
-            return len(self._queue) + self._in_flight
-
-    def service_rate_qps(self) -> float | None:
-        with self._cond:
-            if self._m_busy.value <= 0 or self._m_served.value == 0:
-                return None
-            return self._m_served.value / self._m_busy.value
 
     def seed_rate_qps(self) -> float | None:
         """Deterministic service-rate floor before any history exists:
         one request per `min_step_s` step.  None when no floor is set."""
         return 1.0 / self.min_step_s if self.min_step_s > 0 else None
 
-    def wait(self, uids: Iterable[int],
-             timeout: float | None = None) -> None:
-        uids = list(uids)
+    def _inline_locked(self) -> Callable[[], int] | None:
+        # a faulted compute closed the replica: nothing serves it inline
+        return None if self._fault is not None else super()._inline_locked()
 
-        def unresolved_locked():
-            return [u for u in uids
-                    if u not in self._results and u not in self._shed]
-
-        t_end = None if timeout is None else time.perf_counter() + timeout
-        with self._cond:
-            while unresolved_locked():
-                if self._thread is None and self._fault is None:
-                    break   # drive inline below
-                if self._fault is not None and not self._queue \
-                        and not self._in_flight:
-                    # serving died and shed everything it knew about; what
-                    # is still unresolved never will be
-                    return
-                remaining = (None if t_end is None
-                             else t_end - time.perf_counter())
-                if remaining is not None and remaining <= 0:
-                    raise TimeoutError(
-                        f"{len(unresolved_locked())} of {len(uids)} stage "
-                        f"requests unresolved after {timeout}s")
-                self._cond.wait(remaining if remaining is not None else 0.1)
-            else:
-                return
-        while True:   # no serving thread: drive synchronously
-            with self._cond:
-                if not unresolved_locked():
-                    return
-            if self.step() == 0:
-                with self._cond:
-                    missing = unresolved_locked()
-                    if missing and not self._queue and not self._in_flight:
-                        raise KeyError(
-                            f"stage uids {missing[:4]} are not queued, "
-                            "served, or shed")
-
-    def pop_results(self, uids: Iterable[int] | None = None
-                    ) -> dict[int, StageResult]:
-        with self._cond:
-            if uids is None:
-                out, self._results = self._results, {}
-                return out
-            return {u: self._results.pop(u) for u in list(uids)
-                    if u in self._results}
-
-    def pop_shed(self, uids: Iterable[int] | None = None) -> dict[int, str]:
-        with self._cond:
-            if uids is None:
-                out, self._shed = self._shed, {}
-                return out
-            return {u: self._shed.pop(u) for u in list(uids)
-                    if u in self._shed}
+    def _dead_locked(self, n_missing: int) -> bool:
+        return self._fault is not None and self._idle_locked()
 
     def stats(self) -> dict:
         with self._cond:
-            submitted = self._m_submitted.value
-            served = self._m_served.value
-            shed_by = {r: c.value for r, c in sorted(self._m_shed.items())}
-            shed_total = sum(shed_by.values())
-            pending = len(self._queue) + self._in_flight
             busy = self._m_busy.value
             out = {
                 "stage": self.name,
-                "submitted": submitted,
-                "n": served,
-                "shed": shed_total,
-                "shed_by_reason": shed_by,
-                "pending": pending,
-                "accounted": submitted == served + shed_total + pending,
+                **self._ledger_locked(len(self._queue) + self._in_flight),
                 "queue_hwm": int(self._m_queue.hwm),
                 "busy_s": busy,
             }
-            if served:
+            if out["n"]:
                 out.update(M.summarize_latency(self._lat_hist.samples(),
                                                busy))
-                out["throughput_qps"] = served / busy if busy > 0 else 0.0
-            return out
+                out["throughput_qps"] = out["n"] / busy if busy > 0 else 0.0
+        return self._checked(out)
 
 
 # ---------------------------------------------------------------------------
@@ -690,7 +517,7 @@ class DisaggResult:
         return self.deadline is None or self.t_done <= self.deadline
 
 
-class DisaggServer:
+class DisaggServer(RequestLedger):
     """Disaggregated trunk/head window-scoring fleet (module docstring has
     the topology).  Pipeline-compatible: exposes `.params` / `.backend` /
     `.score_frame(frames)` so `StreamingPipeline` can drive it exactly
@@ -708,7 +535,12 @@ class DisaggServer:
     halves run: each trunk call moves its frame there once, and the cached
     quads stay there.  Construction warms both halves on it, which builds
     the kernels at first use, outside any timed window.
+
+    `wait` never serves inline: the worker pool (`start()`) serves what
+    `submit` queues.
     """
+
+    _noun = "disagg queries"
 
     def __init__(self, params: Any, *,
                  backend: str | B.Backend = "fixed_cuda",
@@ -765,27 +597,15 @@ class DisaggServer:
                                   max_queue=max_queue)
                       for i in range(n_head)]
         # fleet-level intake + worker pool for the open-loop interface
-        self._cond = threading.Condition()
+        self._id = M.instance_label(f"disagg-{self.backend.name}")
+        labels = {"server": self._id, "backend": self.backend.name}
+        super().__init__("disagg", labels)
         self._intake: collections.deque = collections.deque()
-        self._results: dict[int, DisaggResult] = {}
-        self._shed: dict[int, str] = {}
-        self._next_uid = 0
         self._n_busy_workers = 0
         self._workers: list[threading.Thread] = []
         self._stop_flag = False
         self.n_workers = int(n_workers) if n_workers else max(2, n_trunk)
-        self._id = M.instance_label(f"disagg-{self.backend.name}")
-        reg = M.REGISTRY
-        labels = {"server": self._id, "backend": self.backend.name}
-        self._m_submitted = reg.counter("disagg_submitted", **labels)
-        self._m_served = reg.counter("disagg_served", **labels)
-        self._m_shed: dict[str, M.Counter] = {}
-        self._lat_hist = reg.histogram("disagg_latency_seconds", **labels)
-        self._m_queue = reg.gauge("disagg_intake_depth", **labels)
-        self._t_first_submit: float | None = None
-        self._t_last_done: float | None = None
-        self._deadline_total = 0
-        self._deadline_ok = 0
+        self._m_queue = M.REGISTRY.gauge("disagg_intake_depth", **labels)
         if warmup:
             # build both halves' kernels outside the serving clock (the
             # trunk call doubles as the frame-geometry check)
@@ -884,18 +704,10 @@ class DisaggServer:
             raise ValueError(
                 f"frame {frames.shape[1:3]} does not match the server's "
                 f"geometry {self.frame_shape}")
-        with self._cond:
-            uid = self._next_uid
-            self._next_uid += 1
-            self._m_submitted.inc()
         t0 = time.perf_counter()
         with self._cond:
-            if self._t_first_submit is None:
-                self._t_first_submit = t0
+            uid = self._admit_locked(t0, deadline_ms)
         deadline = t0 + deadline_ms / 1e3 if deadline_ms is not None else None
-        if deadline_ms is not None:
-            with self._cond:
-                self._deadline_total += 1
         try:
             scores, hit = self._score(frames, deadline, parent_span)
         except DisaggShedError as e:
@@ -918,14 +730,8 @@ class DisaggServer:
         if frames.ndim == 3:
             frames = frames[None]
         with self._cond:
-            uid = self._next_uid
-            self._next_uid += 1
-            self._m_submitted.inc()
             now = time.perf_counter() if t_submit is None else float(t_submit)
-            if self._t_first_submit is None:
-                self._t_first_submit = now
-            if deadline_ms is not None:
-                self._deadline_total += 1
+            uid = self._admit_locked(now, deadline_ms)
             deadline = (now + deadline_ms / 1e3
                         if deadline_ms is not None else None)
             if self.max_queue is not None \
@@ -1006,14 +812,7 @@ class DisaggServer:
 
     def _shed_locked(self, uid: int, reason: str, t_submit: float,
                      t_end: float, parent_span: Any) -> None:
-        self._shed[uid] = reason
-        c = self._m_shed.get(reason)
-        if c is None:
-            c = M.REGISTRY.counter("disagg_shed", reason=reason,
-                                   server=self._id,
-                                   backend=self.backend.name)
-            self._m_shed[reason] = c
-        c.inc()
+        self._shed_uid_locked(uid, reason)
         tr = T.get()
         if tr is not None:
             tid = (parent_span.trace_id if parent_span is not None
@@ -1021,7 +820,6 @@ class DisaggServer:
             tr.emit("disagg_query", tid, t_submit, t_end,
                     f"shed:{reason}", parent=parent_span, uid=uid,
                     server=self._id)
-        self._cond.notify_all()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -1059,41 +857,6 @@ class DisaggServer:
             self._workers = []
             self._stop_flag = False
 
-    # -- client loop --------------------------------------------------------
-
-    def wait(self, uids: Iterable[int], timeout: float | None = None) -> None:
-        uids = list(uids)
-        t_end = None if timeout is None else time.perf_counter() + timeout
-        with self._cond:
-            while any(u not in self._results and u not in self._shed
-                      for u in uids):
-                remaining = (None if t_end is None
-                             else t_end - time.perf_counter())
-                if remaining is not None and remaining <= 0:
-                    n = sum(1 for u in uids if u not in self._results
-                            and u not in self._shed)
-                    raise TimeoutError(
-                        f"{n} of {len(uids)} disagg queries unresolved "
-                        f"after {timeout}s")
-                self._cond.wait(remaining if remaining is not None else 0.1)
-
-    def pop_results(self, uids: Iterable[int] | None = None
-                    ) -> dict[int, DisaggResult]:
-        with self._cond:
-            if uids is None:
-                out, self._results = self._results, {}
-                return out
-            return {u: self._results.pop(u) for u in list(uids)
-                    if u in self._results}
-
-    def pop_shed(self, uids: Iterable[int] | None = None) -> dict[int, str]:
-        with self._cond:
-            if uids is None:
-                out, self._shed = self._shed, {}
-                return out
-            return {u: self._shed.pop(u) for u in list(uids)
-                    if u in self._shed}
-
     # -- reporting ----------------------------------------------------------
 
     def pending(self) -> int:
@@ -1109,47 +872,27 @@ class DisaggServer:
         stage ledgers reconcile per replica underneath)."""
         per_stage = {e.name: e.stats() for e in self.trunks + self.heads}
         with self._cond:
-            submitted = self._m_submitted.value
             served = self._m_served.value
-            shed_by = {r: c.value for r, c in sorted(self._m_shed.items())}
-            shed_total = sum(shed_by.values())
-            pending = len(self._intake) + self._n_busy_workers
             wall = ((self._t_last_done or 0.0)
                     - (self._t_first_submit or 0.0)) if served else 0.0
-            accounted = submitted == served + shed_total + pending
             out = {
                 "backend": self.backend.name,
                 "topology": {"trunk": len(self.trunks),
                              "head": len(self.heads),
                              "workers": self.n_workers},
-                "submitted": submitted,
-                "n": served,
-                "shed": shed_total,
-                "shed_by_reason": shed_by,
-                "pending": pending,
-                "accounted": accounted,
+                **self._ledger_locked(len(self._intake)
+                                      + self._n_busy_workers),
                 "queue_hwm": int(self._m_queue.hwm),
                 "wall_s": wall,
                 "cache": self.cache.stats(),
                 "per_stage": per_stage,
+                **self._deadline_stats_locked(),
             }
-            if self._deadline_total:
-                out["deadline_total"] = self._deadline_total
-                out["served_within_deadline"] = self._deadline_ok
-                out["goodput"] = self._deadline_ok / self._deadline_total
             if served:
                 out.update(M.summarize_latency(self._lat_hist.samples(),
                                                wall))
                 out["throughput_qps"] = served / wall if wall > 0 else 0.0
-        if not accounted:
-            tr = T.get()
-            if tr is not None:
-                tr.recorder.trip(
-                    "ledger_invariant",
-                    f"disagg {self._id}: submitted={submitted} != "
-                    f"served={served} + shed={shed_total} + "
-                    f"pending={pending}")
-        return out
+        return self._checked(out)
 
     # -- detection-parity helper (benchmarks, tests) ------------------------
 

@@ -75,8 +75,8 @@ import torch
 
 from repro_torch.obs import metrics as M
 from repro_torch.obs import trace as T
-from repro_torch.serving.vision_engine import (VisionEngine, VisionResult,
-                                               latency_stats)
+from repro_torch.serving.ledger import RequestLedger
+from repro_torch.serving.vision_engine import VisionEngine, VisionResult
 
 
 class FleetExhaustedError(RuntimeError):
@@ -109,8 +109,11 @@ class _Pending:
     parent_span: object = None        # caller's trace context (frame span)
 
 
-class ReplicaRouter:
-    """SLO-aware request router over an elastic fleet of `VisionEngine`s."""
+class ReplicaRouter(RequestLedger):
+    """SLO-aware request router over an elastic fleet of `VisionEngine`s.
+    Its results, sheds and `wait` are a `serving/ledger.py` ledger, under
+    a reentrant lock: `_pick`, under the submit lock, reads
+    `queue_depths`, which locks again for its own public callers."""
 
     POLICIES = ("least_loaded", "round_robin", "slo")
 
@@ -136,30 +139,15 @@ class ReplicaRouter:
         self._pending: list[list[_Pending]] = [[] for _ in self.replicas]
         self._errors: dict[int, BaseException] = {}
         self._retired: set[int] = set()
-        self._results: dict[int, RoutedResult] = {}
         self._assignment: dict[int, int] = {}      # uid -> replica (pending)
-        self._shed: dict[int, str] = {}            # uid -> reason (unfetched)
-        # registry-backed fleet ledger + BOUNDED latency reservoir (the raw
-        # per-request list used to grow forever — same retention class as
-        # the engine's); see repro/obs/metrics.py
         self._id = M.instance_label("router")
-        reg = M.REGISTRY
-        self._m_submitted = reg.counter("router_submitted", router=self._id)
-        self._m_served = reg.counter("router_served", router=self._id)
-        self._m_shed: dict[str, M.Counter] = {}    # reason -> Counter
-        self._lat_hist = reg.histogram("router_latency_seconds",
-                                       router=self._id)
+        super().__init__("router", {"router": self._id},
+                         threading.Condition(threading.RLock()))
         self._served_by: dict[int, int] = {i: 0 for i in range(len(replicas))}
-        self._deadline_total = 0
-        self._deadline_ok = 0
         self._idle_ticks = 0
-        self._next_uid = 0
         self._rr_last = -1            # last-dispatched STABLE replica id
         self._thread: threading.Thread | None = None
         self._stop_flag = False
-        # reentrant condition: _pick (under the submit lock) reads
-        # queue_depths, which locks again for its own public callers
-        self._lock = threading.Condition(threading.RLock())
 
     @classmethod
     def from_backends(cls, params: Any, backends: Iterable[str], *,
@@ -180,13 +168,13 @@ class ReplicaRouter:
 
     def healthy_replicas(self) -> list[int]:
         # snapshot under the GIL; callers needing consistency vs concurrent
-        # drains hold self._lock (as _pick/run/_redistribute do)
+        # drains hold self._cond (as _pick/run/_redistribute do)
         dead = set(self._errors) | self._retired
         return [i for i in range(len(self.replicas)) if i not in dead]
 
     def queue_depths(self) -> list[int]:
         """Per-replica load: router pending lane + engine queue+in-flight."""
-        with self._lock:
+        with self._cond:
             return [len(self._pending[i]) + self.replicas[i].load()
                     for i in range(len(self.replicas))]
 
@@ -200,7 +188,7 @@ class ReplicaRouter:
         locked passes let a concurrent submit land between the reads, so
         the wait map and the tiebreaker could describe different fleets
         mid-pick."""
-        with self._lock:
+        with self._cond:
             return {i: (len(self._pending[i]) + self.replicas[i].load(),
                         self.replicas[i].service_rate_qps(),
                         self.replicas[i].seed_rate_qps(),
@@ -294,24 +282,20 @@ class ReplicaRouter:
         where it died (status "shed:<reason>")."""
         tr = T.get()
         t_in = time.perf_counter() if tr is not None else 0.0
-        with self._lock:
+        with self._cond:
             dl = deadline_ms if deadline_ms is not None else self.slo_ms
-            i, shed = self._pick(dl)   # may raise FleetExhaustedError:
-            uid = self._next_uid       # counters move only once admitted
-            self._next_uid += 1
-            self._m_submitted.inc()
-            if dl is not None:
-                self._deadline_total += 1
+            # may raise FleetExhaustedError: counters move only once admitted
+            i, shed = self._pick(dl)
+            now = time.perf_counter() if t_submit is None else float(t_submit)
+            uid = self._admit_locked(now, dl)
             if shed is not None:
                 self._shed_uid_locked(uid, shed)
             else:
                 self._assignment[uid] = i
-                now = (time.perf_counter() if t_submit is None
-                       else float(t_submit))
                 self._pending[i].append(_Pending(
                     uid=uid, image=np.asarray(image, np.float32),
                     t_submit=now, deadline_ms=dl, parent_span=parent_span))
-                self._lock.notify_all()
+                self._cond.notify_all()
         if tr is not None:
             tid = (parent_span.trace_id if parent_span is not None
                    else f"rreq-{self._id}-{uid}")
@@ -329,15 +313,8 @@ class ReplicaRouter:
                             parent_span=parent_span) for img in images]
 
     def _shed_uid_locked(self, uid: int, reason: str) -> None:
-        self._shed[uid] = reason
-        c = self._m_shed.get(reason)
-        if c is None:
-            c = M.REGISTRY.counter("router_shed", reason=reason,
-                                   router=self._id)
-            self._m_shed[reason] = c
-        c.inc()
+        super()._shed_uid_locked(uid, reason)
         self._assignment.pop(uid, None)
-        self._lock.notify_all()
 
     # -- serving side -------------------------------------------------------
 
@@ -353,7 +330,7 @@ class ReplicaRouter:
         tr = T.get()
         t_in = time.perf_counter() if tr is not None else 0.0
         eng = self.replicas[i]
-        with self._lock:              # vs concurrent submit() to this lane
+        with self._cond:              # vs concurrent submit() to this lane
             lane, self._pending[i] = self._pending[i], []
         if not lane:
             return []
@@ -391,7 +368,7 @@ class ReplicaRouter:
             if reason is not None and reason != "fault":
                 shed_here[p.uid] = reason    # lapsed in queue: not re-run
                 done.add(p.uid)
-        with self._lock:
+        with self._cond:
             self._results.update(routed)
             for uid, rr in routed.items():
                 self._m_served.inc()
@@ -408,7 +385,7 @@ class ReplicaRouter:
                         self._deadline_ok += 1
             if error is not None:
                 self._errors[i] = error
-            self._lock.notify_all()
+            self._cond.notify_all()
         if tr is not None:
             tr.emit("drain", f"drain-{self._id}", t_in, time.perf_counter(),
                     "ok" if error is None else "error", replica=i,
@@ -429,7 +406,7 @@ class ReplicaRouter:
         every step past its deadline (`PERF.md` §5)."""
         served_before = self._m_served.value
         while True:
-            with self._lock:
+            with self._cond:
                 # reclaim lanes stranded on dead replicas: a concurrent
                 # submit() can route to a replica in the window before its
                 # fault is recorded — those requests must fail over too,
@@ -446,13 +423,13 @@ class ReplicaRouter:
             unserved = [p for i in busy for p in self._drain_replica(i)]
             if not unserved:
                 continue              # loop once more in case of re-routes
-            with self._lock:
+            with self._cond:
                 self._redistribute(unserved)
         return self._m_served.value - served_before
 
     def _redistribute(self, orphans: list[_Pending]) -> None:
         """Spread failed-over requests across the survivors, shallowest lane
-        first.  Caller holds self._lock."""
+        first.  Caller holds self._cond."""
         if not orphans:
             return
         healthy = self.healthy_replicas()
@@ -472,7 +449,7 @@ class ReplicaRouter:
         after wave (continuous batching at fleet granularity — each drain
         takes exactly what accumulated during the last), autoscaling when a
         `spawn` factory was provided.  Idempotent."""
-        with self._lock:
+        with self._cond:
             if self._thread is not None:
                 return self
             self._stop_flag = False
@@ -483,18 +460,18 @@ class ReplicaRouter:
 
     def _serve_loop(self) -> None:
         while True:
-            with self._lock:
+            with self._cond:
                 has_work = any(self._pending[i]
                                for i in self.healthy_replicas())
                 if not has_work:
                     if self._stop_flag:
                         return
-                    self._lock.wait(timeout=0.01)
+                    self._cond.wait(timeout=0.01)
             if has_work:
                 try:
                     self.run()
                 except FleetExhaustedError:
-                    with self._lock:
+                    with self._cond:
                         for lane in self._pending:
                             while lane:
                                 self._shed_uid_locked(lane.pop().uid,
@@ -506,17 +483,17 @@ class ReplicaRouter:
     def stop(self, drain: bool = True) -> None:
         """Stop the fleet serving loop (draining pending work first unless
         `drain=False`, which sheds it)."""
-        with self._lock:
+        with self._cond:
             thread = self._thread
             self._stop_flag = True
             if not drain:
                 for lane in self._pending:
                     while lane:
                         self._shed_uid_locked(lane.pop().uid, "stopped")
-            self._lock.notify_all()
+            self._cond.notify_all()
         if thread is not None:
             thread.join(timeout=120.0)
-            with self._lock:
+            with self._cond:
                 self._thread = None
                 self._stop_flag = False
 
@@ -528,7 +505,7 @@ class ReplicaRouter:
         Returns "spawn:<i>" / "retire:<i>" / None.  Meant to be called from
         one place (the serving loop or the harness) — concurrent callers
         may overshoot the bounds by a replica."""
-        with self._lock:
+        with self._cond:
             healthy = self.healthy_replicas()
             if not healthy:
                 return None
@@ -555,7 +532,7 @@ class ReplicaRouter:
                         return f"retire:{i}"
                 return None
         eng = self._spawn()           # build OUTSIDE the lock: warmup launches
-        with self._lock:
+        with self._cond:
             self.replicas.append(eng)
             self._pending.append([])
             i = len(self.replicas) - 1
@@ -565,65 +542,17 @@ class ReplicaRouter:
 
     # -- client loop --------------------------------------------------------
 
-    def wait(self, uids: Iterable[int], timeout: float | None = None) -> None:
-        """Block until every uid is resolved (served or shed).  With the
-        serving thread running this waits on its completions; without it,
-        pending waves are drained inline via run()."""
-        uids = list(uids)
+    def _inline_locked(self) -> Callable[[], int] | None:
+        return self.run if self._thread is None else None
 
-        def unresolved_locked():
-            return [u for u in uids
-                    if u not in self._results and u not in self._shed]
+    def _idle_locked(self) -> bool:
+        return not any(self._pending)
 
-        if self._thread is None:
-            while True:
-                with self._lock:
-                    missing = unresolved_locked()
-                    if not missing:
-                        return
-                    pending = sum(len(lane) for lane in self._pending)
-                if pending == 0:
-                    raise KeyError(
-                        f"uids {missing[:4]} are not pending, served, or "
-                        "shed — were their results already popped?")
-                self.run()
-            return
-        t_end = None if timeout is None else time.perf_counter() + timeout
-        with self._lock:
-            while unresolved_locked():
-                remaining = (None if t_end is None
-                             else t_end - time.perf_counter())
-                if remaining is not None and remaining <= 0:
-                    raise TimeoutError(
-                        f"{len(unresolved_locked())} of {len(uids)} requests "
-                        f"unresolved after {timeout}s")
-                self._lock.wait(remaining if remaining is not None else 0.1)
-
-    def pop_results(self, uids: Iterable[int] | None = None
-                    ) -> dict[int, RoutedResult]:
-        """Hand over (and forget) completed results — bounded retention at
-        fleet level (assignment records go with them)."""
-        with self._lock:
-            if uids is None:
-                out, self._results = self._results, {}
-                self._assignment = {u: i for u, i in self._assignment.items()
-                                    if u not in out}
-                return out
-            out = {}
-            for u in list(uids):
-                if u in self._results:
-                    out[u] = self._results.pop(u)
-                    self._assignment.pop(u, None)
-            return out
-
-    def pop_shed(self, uids: Iterable[int] | None = None) -> dict[int, str]:
-        """Hand over (and forget) shed records (uid -> reason)."""
-        with self._lock:
-            if uids is None:
-                out, self._shed = self._shed, {}
-                return out
-            return {u: self._shed.pop(u) for u in list(uids)
-                    if u in self._shed}
+    def _pop_results_locked(self, uids: Iterable[int] | None) -> dict:
+        out = super()._pop_results_locked(uids)
+        for u in out:                 # assignment records go with them
+            self._assignment.pop(u, None)
+        return out
 
     def serve(self, images: Iterable[np.ndarray], *,
               deadline_ms: float | None = None
@@ -638,13 +567,8 @@ class ReplicaRouter:
 
     # -- reporting ----------------------------------------------------------
 
-    def results(self) -> dict[int, RoutedResult]:
-        """Currently-retained (not yet popped) results."""
-        with self._lock:
-            return dict(self._results)
-
     def errors(self) -> dict[int, BaseException]:
-        with self._lock:
+        with self._cond:
             return dict(self._errors)
 
     def stats(self) -> dict:
@@ -652,11 +576,7 @@ class ReplicaRouter:
         stats.  Fleet throughput is the SUM of per-replica observed service
         rates (replicas serve in parallel), each measured over that
         replica's busy time — idle gaps never deflate it."""
-        with self._lock:
-            submitted = self._m_submitted.value
-            served = self._m_served.value
-            shed_by = {r: c.value for r, c in sorted(self._m_shed.items())}
-            shed_total = sum(shed_by.values())
+        with self._cond:
             # lanes (incl. ones stranded on dead replicas — run() reclaims
             # those) + live engines' queues.  A DEAD replica's engine queue
             # is excluded: whatever it still holds was already failed over.
@@ -664,40 +584,21 @@ class ReplicaRouter:
                        + sum(self.replicas[i].load()
                              for i in range(len(self.replicas))
                              if i not in self._errors))
-            failed = sorted(self._errors)
-            accounted = submitted == served + shed_total + pending
             out = {
                 "replicas": len(self.replicas),
                 "healthy": len(self.healthy_replicas()),
                 "retired": sorted(self._retired),
-                "failed": failed,
+                "failed": sorted(self._errors),
                 "policy": self.policy,
                 "slo_ms": self.slo_ms,
-                "n": served,
-                "submitted": submitted,
-                "shed": shed_total,
-                "shed_by_reason": shed_by,
-                "pending": pending,
-                # the fleet-level no-silent-loss invariant
-                "accounted": accounted,
+                **self._ledger_locked(pending),
                 "per_replica": [eng.stats() for eng in self.replicas],
                 "served_by": dict(sorted(self._served_by.items())),
+                **self._deadline_stats_locked(),
             }
-            if self._deadline_total:
-                out["deadline_total"] = self._deadline_total
-                out["served_within_deadline"] = self._deadline_ok
-                out["goodput"] = self._deadline_ok / self._deadline_total
-            if served:
+            if out["n"]:
                 busy = sum(r["busy_s"] for r in out["per_replica"])
-                out.update(latency_stats(self._lat_hist.samples(), busy))
+                out.update(M.summarize_latency(self._lat_hist.samples(), busy))
                 rates = [eng.service_rate_qps() for eng in self.replicas]
                 out["throughput_qps"] = float(sum(r for r in rates if r))
-        if not accounted:
-            tr = T.get()
-            if tr is not None:
-                tr.recorder.trip(
-                    "ledger_invariant",
-                    f"router {self._id}: submitted={submitted} != "
-                    f"served={served} + shed={shed_total} + "
-                    f"pending={pending}")
-        return out
+        return self._checked(out)

@@ -35,6 +35,9 @@ reason and the pipeline's no-silent-loss invariant extends to the engine:
 
     submitted == served + shed + pending        (stats()["accounted"])
 
+The queue, the door, the serving thread, the ledger and `wait` are the
+`ServingQueue` of `serving/ledger.py`, which `StageEngine` shares.
+
 Serving runs either synchronously (`step()`/`run()` on the caller's thread)
 or continuously (`start()` spawns a serving thread that batches whatever
 arrives; `submit()` + `wait()` + `pop_results()` is the client loop —
@@ -64,9 +67,7 @@ Usage:
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
-import threading
 import time
 from typing import Any, Iterable
 
@@ -79,17 +80,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.obs import metrics as M
 from repro_torch.obs import trace as T
-
-
-def latency_stats(latencies_s, window_s: float) -> dict:
-    """The shared latency/throughput block of engine AND fleet stats():
-    mean/p50/p95/p99/max in ms + qps over the `window_s`-second serving
-    window.  A zero-length window yields 0.0 qps (a single instantaneous
-    batch has no measurable rate — never inf); an empty latency set raises
-    (callers must guard the n == 0 case explicitly).  Percentiles are
-    NEAREST-RANK via the one shared helper (`obs.metrics.percentile`) —
-    the same semantics as every other latency summary in the repo."""
-    return M.summarize_latency(latencies_s, window_s)
+from repro_torch.serving.ledger import ServingQueue
 
 
 class EngineFaultError(RuntimeError):
@@ -128,7 +119,7 @@ class VisionResult:
         return self.deadline is None or self.t_done <= self.deadline
 
 
-class VisionEngine:
+class VisionEngine(ServingQueue):
     """Continuously-batched streaming classifier over any smallNet backend.
 
     Requests submitted via `submit()` queue up (or are shed at the
@@ -142,8 +133,11 @@ class VisionEngine:
     device compute runs outside it, so submitters never block on the
     accelerator.  `start()`/`stop()` run the step loop on a daemon thread
     (continuous batching); without it, `step()`/`run()`/`wait()` drive
-    serving synchronously on the caller's thread.
+    serving synchronously on the caller's thread.  On a dead serving
+    thread, `wait` raises `EngineFaultError`.
     """
+
+    _Request = VisionRequest
 
     def __init__(self, params: Any, *, backend: str | B.Backend = "fixed_cuda",
                  batch_size: int = 32, image_shape=(28, 28, 1),
@@ -167,50 +161,23 @@ class VisionEngine:
             self.batch_size = -(-self.batch_size // mult) * mult
             self._shard_devices = shd.vision_batch_devices(mesh)
         self.device = self._shard_devices[0]
-        self.max_queue = None if max_queue is None else int(max_queue)
         self.max_age_ms = None if max_age_ms is None else float(max_age_ms)
-        # service-time floor per step: a deterministic rate limiter
-        # (capacity = batch_size / min_step_s), so a test of the router's
-        # dispatch has a known capacity whatever the host's speed.  Only
-        # the tests that mirror the reference's dispatch tests set it; no
-        # path of the port does.  0 disables
-        self.min_step_s = float(min_step_s)
         # quantize once at engine build (the paper bakes weights at
         # synthesis), once a device on a mesh
         self._shard_params = [self.backend.prepare_params(params, d)
                               for d in self._shard_devices]
-        self._cond = threading.Condition()
-        self._queue: collections.deque[VisionRequest] = collections.deque()
-        self._results: dict[int, VisionResult] = {}
-        self._shed: dict[int, str] = {}            # uid -> reason (unfetched)
-        # -- registry-backed accounting (repro/obs/metrics.py): the ledger
-        # counters, queue-depth gauge, and latency histogram live in the
-        # process-wide registry under this engine's unique instance label
-        # (Prometheus-exportable, bounded memory — the latency list used to
-        # grow per request forever).  stats() reads these back; the ledger
-        # invariant submitted == served + shed + pending is computed over
-        # the counter values.
+        # the ledger's counters, the queue-depth gauge and the latency
+        # histogram live in the process-wide registry under this engine's
+        # unique instance label; stats() reads them back
         self._id = M.instance_label(f"eng-{self.backend.name}")
-        reg = M.REGISTRY
         labels = {"engine": self._id, "backend": self.backend.name}
-        self._m_submitted = reg.counter("engine_submitted", **labels)
-        self._m_served = reg.counter("engine_served", **labels)
-        self._m_shed: dict[str, M.Counter] = {}    # reason -> Counter
+        super().__init__("engine", labels, max_queue=max_queue,
+                         min_step_s=min_step_s,
+                         thread_name=f"vision-engine-{self.backend.name}")
+        reg = M.REGISTRY
         self._m_batches = reg.counter("engine_batches", **labels)
         self._m_padded = reg.counter("engine_padded_slots", **labels)
-        self._m_busy = reg.counter("engine_busy_seconds", **labels)
-        self._m_queue = reg.gauge("engine_queue_depth", **labels)
         self._m_occupancy = reg.gauge("engine_batch_occupancy", **labels)
-        self._lat_hist = reg.histogram("engine_latency_seconds", **labels)
-        self._next_uid = 0
-        self._in_flight = 0
-        self._deadline_total = 0                   # submits that carried one
-        self._deadline_ok = 0                      # ...served in time
-        self._t_first_submit: float | None = None
-        self._t_last_done: float | None = None
-        self._thread: threading.Thread | None = None
-        self._stop_flag = False
-        self._fault: BaseException | None = None
         if warmup:     # build and launch the kernels outside the serving clock
             self._step_fn(np.zeros((self.batch_size,) + self.image_shape,
                                    np.float32))
@@ -261,37 +228,10 @@ class VisionEngine:
         streaming pipeline passes the frame's root span).  The span is
         materialized at the request's terminal point from the timestamps
         the engine records anyway — submit itself does no tracer work."""
-        img = np.asarray(image, np.float32).reshape(self.image_shape)
-        with self._cond:
-            uid = self._next_uid
-            self._next_uid += 1
-            self._m_submitted.inc()
-            now = time.perf_counter() if t_submit is None else float(t_submit)
-            if self._t_first_submit is None:
-                self._t_first_submit = now
-            if deadline_ms is not None:
-                self._deadline_total += 1
-            # Tracing adds NOTHING here: the request path records plain
-            # floats (t_submit) and the caller's span ref; the "request" /
-            # "queue_wait" spans are materialized at their terminal point
-            # (step completion or shed) via Tracer.emit, keeping the
-            # submit critical path span-free.
-            if self._fault is not None:
-                self._shed_locked(uid, "fault", now, now,
-                                  parent_span=parent_span)
-            elif (self.max_queue is not None
-                    and len(self._queue) >= self.max_queue):
-                self._shed_locked(uid, "queue_depth", now, now,
-                                  parent_span=parent_span)
-            else:
-                deadline = (now + deadline_ms / 1e3
-                            if deadline_ms is not None else None)
-                self._queue.append(VisionRequest(
-                    uid=uid, image=img, t_submit=now, deadline=deadline,
-                    parent_span=parent_span))
-                self._m_queue.set(len(self._queue))
-                self._cond.notify_all()
-            return uid
+        return super().submit(
+            np.asarray(image, np.float32).reshape(self.image_shape),
+            deadline_ms=deadline_ms, t_submit=t_submit,
+            parent_span=parent_span)
 
     def submit_many(self, images: Iterable[np.ndarray], *,
                     deadline_ms: float | None = None,
@@ -299,29 +239,16 @@ class VisionEngine:
         return [self.submit(img, deadline_ms=deadline_ms,
                             parent_span=parent_span) for img in images]
 
-    def _shed_locked(self, uid: int, reason: str,
-                     t_submit: float, t_end: float, *,
-                     parent_span: Any = None, queued: bool = False) -> None:
-        self._shed[uid] = reason
-        c = self._m_shed.get(reason)
-        if c is None:
-            c = M.REGISTRY.counter("engine_shed", reason=reason,
-                                   engine=self._id,
-                                   backend=self.backend.name)
-            self._m_shed[reason] = c
-        c.inc()
-        tr = T.get()
-        if tr is not None:
-            tid = (parent_span.trace_id if parent_span is not None
-                   else f"req-{self._id}-{uid}")
-            span = tr.emit("request", tid, t_submit, t_end,
-                           f"shed:{reason}", parent=parent_span, uid=uid,
-                           engine=self._id)
-            if queued:   # the request sat in the queue before being shed
-                tr.emit("queue_wait", tid, t_submit, t_end,
-                        "expired" if reason in ("deadline", "age") else "ok",
-                        parent=span)
-        self._cond.notify_all()
+    def _shed_span(self, tr, uid: int, reason: str, t_submit: float,
+                   t_end: float, parent_span: Any, queued: bool) -> None:
+        tid = (parent_span.trace_id if parent_span is not None
+               else f"req-{self._id}-{uid}")
+        span = tr.emit("request", tid, t_submit, t_end, f"shed:{reason}",
+                       parent=parent_span, uid=uid, engine=self._id)
+        if queued:   # the request sat in the queue before being shed
+            tr.emit("queue_wait", tid, t_submit, t_end,
+                    "expired" if reason in ("deadline", "age") else "ok",
+                    parent=span)
 
     # -- serving side -------------------------------------------------------
 
@@ -396,10 +323,8 @@ class VisionEngine:
                     self._shed_locked(r.uid, "fault", r.t_submit, now,
                                       parent_span=r.parent_span, queued=True)
             raise
-        t_done = time.perf_counter() if ph is None else ph.end()
-        if self.min_step_s > 0.0 and t_done - t0 < self.min_step_s:
-            time.sleep(self.min_step_s - (t_done - t0))
-            t_done = time.perf_counter()     # the floor IS the service time
+        t_done = self._held_to_floor(
+            t0, time.perf_counter() if ph is None else ph.end())
         if ds is not None:
             tr.end_at(ds, t_done)
         scores_cpu = scores.cpu()                   # one copy back per step
@@ -459,142 +384,16 @@ class VisionEngine:
                     if not self._queue:
                         return served
 
-    # -- continuous serving thread ------------------------------------------
-
-    def start(self) -> "VisionEngine":
-        """Spawn the continuous-batching loop: a daemon thread that forms a
-        batch from whatever is queued whenever work exists.  Idempotent."""
-        with self._cond:
-            if self._thread is not None:
-                return self
-            self._stop_flag = False
-            self._thread = threading.Thread(
-                target=self._serve_loop, daemon=True,
-                name=f"vision-engine-{self.backend.name}")
-            self._thread.start()
-        return self
-
-    def _serve_loop(self) -> None:
-        while True:
-            with self._cond:
-                while not self._queue and not self._stop_flag:
-                    self._cond.wait(timeout=0.05)
-                if self._stop_flag and not self._queue:
-                    return
-            try:
-                self.step()
-            except Exception as e:   # noqa: BLE001 — any step fault kills serving
-                with self._cond:
-                    self._fault = e
-                    now = time.perf_counter()
-                    while self._queue:     # nothing will ever serve these
-                        r = self._queue.popleft()
-                        self._shed_locked(r.uid, "fault", r.t_submit, now,
-                                          parent_span=r.parent_span,
-                                          queued=True)
-                    self._cond.notify_all()
-                return
-
-    def stop(self, drain: bool = True) -> None:
-        """Stop the serving thread.  `drain=True` serves what's queued
-        first; `drain=False` sheds it (reason "stopped").  No-op when no
-        thread is running."""
-        with self._cond:
-            thread = self._thread
-            self._stop_flag = True
-            if not drain:
-                now = time.perf_counter()
-                while self._queue:
-                    r = self._queue.popleft()
-                    self._shed_locked(r.uid, "stopped", r.t_submit, now,
-                                      parent_span=r.parent_span, queued=True)
-            self._cond.notify_all()
-        if thread is not None:
-            thread.join(timeout=60.0)
-            with self._cond:
-                self._thread = None
-                self._stop_flag = False
-
-    @property
-    def started(self) -> bool:
-        return self._thread is not None
-
-    @property
-    def fault(self) -> BaseException | None:
-        return self._fault
-
-    def queue_depth(self) -> int:
-        return len(self._queue)
-
-    def load(self) -> int:
-        """Queued + in-flight requests: the router's depth signal."""
-        with self._cond:
-            return len(self._queue) + self._in_flight
-
     # -- client loop --------------------------------------------------------
 
-    def wait(self, uids: Iterable[int], timeout: float | None = None) -> None:
-        """Block until every uid is resolved (served or shed).  With the
-        serving thread running this waits on its completions; without it,
-        serving is driven inline on the caller's thread."""
-        uids = list(uids)
-
-        def unresolved_locked():
-            return [u for u in uids
-                    if u not in self._results and u not in self._shed]
-
-        if self._thread is None:
-            while True:
-                with self._cond:
-                    missing = unresolved_locked()
-                    if not missing:
-                        return
-                if self.step() == 0:
-                    with self._cond:
-                        missing = unresolved_locked()
-                        if missing and not self._queue and not self._in_flight:
-                            raise KeyError(
-                                f"uids {missing[:4]} are not queued, served, "
-                                "or shed — were their results already "
-                                "popped by another caller?")
-        t_end = None if timeout is None else time.perf_counter() + timeout
-        with self._cond:
-            while unresolved_locked():
-                if self._fault is not None:
-                    # the serving thread is dead and shed everything it
-                    # knew about — what's still unresolved never will be
-                    raise EngineFaultError(
-                        f"serving thread died; {len(unresolved_locked())} "
-                        "uids will never resolve") from self._fault
-                remaining = (None if t_end is None
-                             else t_end - time.perf_counter())
-                if remaining is not None and remaining <= 0:
-                    raise TimeoutError(
-                        f"{len(unresolved_locked())} of {len(uids)} requests "
-                        f"unresolved after {timeout}s")
-                self._cond.wait(remaining if remaining is not None else 0.1)
-
-    def pop_results(self, uids: Iterable[int] | None = None
-                    ) -> dict[int, VisionResult]:
-        """Hand over (and forget) completed results — the bounded-retention
-        contract: a pipeline popping per wave keeps the engine's resident
-        result set O(batch) over an unbounded stream.  `None` pops all."""
-        with self._cond:
-            if uids is None:
-                out, self._results = self._results, {}
-                return out
-            return {u: self._results.pop(u) for u in list(uids)
-                    if u in self._results}
-
-    def pop_shed(self, uids: Iterable[int] | None = None) -> dict[int, str]:
-        """Hand over (and forget) shed records (uid -> reason).  Aggregate
-        per-reason counts in stats() are unaffected."""
-        with self._cond:
-            if uids is None:
-                out, self._shed = self._shed, {}
-                return out
-            return {u: self._shed.pop(u) for u in list(uids)
-                    if u in self._shed}
+    def _dead_locked(self, n_missing: int) -> bool:
+        if self._fault is not None:
+            # the serving thread is dead and shed everything it knew about:
+            # what is still unresolved never will be
+            raise EngineFaultError(
+                f"serving thread died; {n_missing} uids will never "
+                "resolve") from self._fault
+        return False
 
     def serve(self, images: Iterable[np.ndarray], *,
               deadline_ms: float | None = None, parent_span: Any = None
@@ -610,20 +409,6 @@ class VisionEngine:
         return [res.get(u) for u in uids]
 
     # -- reporting ----------------------------------------------------------
-
-    def results(self) -> dict[int, VisionResult]:
-        """Currently-retained (not yet popped) results."""
-        with self._cond:
-            return dict(self._results)
-
-    def service_rate_qps(self) -> float | None:
-        """Observed service rate: requests served per second of BUSY time
-        (idle gaps excluded).  None before any serving history exists —
-        the router's dispatch falls back to fleet statistics then."""
-        with self._cond:
-            if self._m_busy.value <= 0 or self._m_served.value == 0:
-                return None
-            return self._m_served.value / self._m_busy.value
 
     def seed_rate_qps(self) -> float | None:
         """Deterministic service-rate bound available BEFORE any serving
@@ -642,27 +427,17 @@ class VisionEngine:
         from the registry instruments.  A broken ledger trips the flight
         recorder (when tracing is on) before it is reported."""
         with self._cond:
-            submitted = self._m_submitted.value
-            served = self._m_served.value
-            shed_by = {r: c.value for r, c in sorted(self._m_shed.items())}
-            shed_total = sum(shed_by.values())
             pending = len(self._queue) + self._in_flight
             batches = self._m_batches.value
             padded = self._m_padded.value
             busy = self._m_busy.value
             slots = batches * self.batch_size
+            served = self._m_served.value
             wall = ((self._t_last_done or 0.0)
                     - (self._t_first_submit or 0.0)) if served else 0.0
-            accounted = submitted == served + shed_total + pending
             out = {
                 "backend": self.backend.name,
-                "n": served,
-                "submitted": submitted,
-                "shed": shed_total,
-                "shed_by_reason": shed_by,
-                "pending": pending,
-                # the engine-level no-silent-loss invariant
-                "accounted": accounted,
+                **self._ledger_locked(pending),
                 "batch_size": self.batch_size,
                 "batches": batches,
                 "padded_slots": padded,
@@ -680,25 +455,12 @@ class VisionEngine:
                 # real service rate, not served/3600)
                 "busy_s": busy,
                 "wall_s": wall,
+                **self._deadline_stats_locked(),
             }
-            if self._deadline_total:
-                out["deadline_total"] = self._deadline_total
-                out["served_within_deadline"] = self._deadline_ok
-                # goodput under the latency SLO: requests answered in time
-                # over everything that asked (sheds count against it)
-                out["goodput"] = self._deadline_ok / self._deadline_total
             if served:
-                out.update(latency_stats(self._lat_hist.samples(), busy))
+                out.update(M.summarize_latency(self._lat_hist.samples(), busy))
                 # percentiles come from the bounded reservoir (recent
                 # window), but throughput must count EVERY served request —
                 # recompute it from the exact counters
                 out["throughput_qps"] = served / busy if busy > 0 else 0.0
-        if not accounted:
-            tr = T.get()
-            if tr is not None:
-                tr.recorder.trip(
-                    "ledger_invariant",
-                    f"engine {self._id}: submitted={submitted} != "
-                    f"served={served} + shed={shed_total} + "
-                    f"pending={pending}")
-        return out
+        return self._checked(out)

@@ -277,8 +277,8 @@ def test_router_resident_results_stay_bounded(setup, backend):
     for i in range(40):
         res = router.serve([images[i % 100], images[(i + 1) % 100]])
         assert len(res) == 2
-        assert len(router._results) == 0 and len(router._assignment) == 0
-        assert len(router._shed) == 0
+        assert router.results() == {} and len(router._assignment) == 0
+        assert router.pop_shed() == {}
     assert router.stats()["n"] == 80
 
 
@@ -326,7 +326,7 @@ def test_slo_dispatch_prefers_faster_replica(setup, backend):
     router.replicas[0]._step_fn = _slow_step(8, 0.050)   # 160 qps
     router.replicas[1]._step_fn = _slow_step(8, 0.005)   # 1600 qps
     router.serve([IMG] * 32)
-    with router._lock:
+    with router._cond:
         router._pending[0] = []
         router._pending[1] = []
     assigned = [router._assignment[router.submit(IMG)] for _ in range(6)]
@@ -452,12 +452,26 @@ def test_dispatch_emits_point_spans(setup):
     assert first in router.pop_results([first])
 
 
+def test_unresolved_names_the_uids_neither_served_nor_shed(setup):
+    router = ReplicaRouter([_engine(setup, max_queue=2)], policy="round_robin")
+    uids = router.submit_many([IMG] * 3)
+    assert router.unresolved(uids) == uids                  # still on the lane
+    router.wait(uids)
+    assert router.unresolved(uids) == []
+    assert router.pop_shed(uids) == {uids[2]: "queue_depth"}
+    assert sorted(router.pop_results(uids)) == uids[:2]
+    assert router.unresolved(uids) == uids                  # popped: unknown again
+    with pytest.raises(KeyError):
+        router.wait(uids)
+    assert router.stats()["accounted"]
+
+
 def test_dispatch_span_counts_the_wait_for_the_lock(setup):
     router = ReplicaRouter([_engine(setup)], policy="round_robin")
     held, release = threading.Event(), threading.Event()
 
     def hold():
-        with router._lock:
+        with router._cond:
             held.set()
             release.wait(5)
     th = threading.Thread(target=hold)
