@@ -147,7 +147,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             64-frame 112x112 clip on cuda_plan (2 float_sweep_stage and 1
             float_window_head a frame, each frame a replay of the frame
             graph the warm-up captured, `fcn_sweep_graph` counting one
-            capture and 64 replays; so too the fixed_cuda clips), on
+            capture and 64 replays, all 64 on the event loop's thread,
+            `infer_thread`; so too the fixed_cuda clips), on
             cuda_plan's composed cascade
             (megakernel=False: 20 conv2d, 2 maxpool2d, 12 sigmoid_pla a
             frame) and on int8 (1 quant_matmul a frame): window scores within 2e-5
@@ -2281,8 +2282,9 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
     wall window).  `tiler_scores(frame)`, when given, are the host tiler's
     CPU scores for the frame, which the first frames' scores must also
     match.  `graphed`: every frame of the run replays the frame graph the
-    pipeline's warm-up sweep captured (`fcn_sweep_graph`); else every call
-    is eager."""
+    pipeline's warm-up sweep captured (`fcn_sweep_graph`), on the event
+    loop's thread (`stats()["infer_thread"]`); else every call is eager,
+    on a worker."""
     import numpy as np
     import torch
     from repro_torch.core import backends as B
@@ -2293,13 +2295,20 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
 
     @dataclasses.dataclass(frozen=True)
     class RecordingSweep(FcnSweep):
-        """FcnSweep that keeps the words of every `score` call, in call order
-        (the pipeline's infer stage scores one frame at a time, in order)."""
+        """FcnSweep that keeps the words of every `score` call and every
+        replay, in call order (the pipeline's infer stage scores one frame
+        at a time, in order)."""
         words: list = dataclasses.field(default_factory=list, compare=False, repr=False)
 
         def score(self, *args, **kwargs):
             out = super().score(*args, **kwargs)
             self.words.append(out)
+            return out
+
+        def replay(self, *args, **kwargs):
+            out = super().replay(*args, **kwargs)
+            if out is not None:
+                self.words.append(out)
             return out
 
     frames = source.frames()
@@ -2344,6 +2353,9 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
            f"{label}: ledger frames_in={st['frames_in']} served={st['frames_served']} "
            f"dropped={st['frames_dropped']}")
     expect([r.index for r in results] == list(range(n)), f"{label}: frames out of order")
+    threads = {"loop": n, "worker": 0} if graphed else {"loop": 0, "worker": n}
+    expect(st["infer_thread"] == threads,
+           f"{label}: infer waves by thread {st['infer_thread']}, expected {threads}")
     expect(len(sweep.words) == n, f"{label}: {len(sweep.words)} sweep calls for {n} frames")
     # every frame's detections equal the CPU's; with float scores a frame may
     # differ only where the CPU's own detections are ambiguous within the
@@ -2393,7 +2405,7 @@ def sweep_once(params, source, backend, plain, threshold, label, card, want_per_
          ambiguous_within_tolerance={k: sum(a[k] for a in amb) for k in amb[0]} if amb else {},
          tolerance=tol, max_abs_err=max_err,
          score_words_checked=words_checked, accounted=st["accounted"],
-         graph_events_warmup=warm, graph_events_run=run,
+         graph_events_warmup=warm, graph_events_run=run, infer_thread=st["infer_thread"],
          wall_s=wall_s, frames_per_wall_s=n / wall_s, sustained_fps=st["sustained_fps"],
          latency_p50_ms=st["latency_p50_ms"], latency_p99_ms=st["latency_p99_ms"],
          stage_p50_ms={k: v["p50_ms"] for k, v in st["stage"].items()},

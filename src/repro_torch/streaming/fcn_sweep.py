@@ -72,7 +72,9 @@ device and the params' storage.  A graph reads the caller's param
 storage, so a value written in place shows in the next replay; other
 param tensors are another key.  Graph and eager give the same scores bit
 for bit.  The registry counter `fcn_sweep_graph` (label `event`:
-`capture`, `replay`, `eager`) counts the calls.  Otherwise the sweep is a
+`capture`, `replay`, `eager`) counts the calls.  `FcnSweep.replay` is the
+replay alone, with the same key: None where the call has no cached graph,
+for a caller that runs `score` elsewhere then.  Otherwise the sweep is a
 plain function on tensors, and only the window offsets and gather
 indices are cached, per (geometry, device).  `make_trunk_fn`/`make_head_fn` split the same sweep
 into its two halves for `serving/disagg.py`, eagerly: the trunk
@@ -86,6 +88,7 @@ import collections
 import dataclasses
 import functools
 import threading
+import time
 from typing import Any, ClassVar, Sequence
 
 import numpy as np
@@ -579,13 +582,28 @@ class FcnSweep(Tiler):
         spans a frame.  A replay has no "masks" or "head": "trunk" (the
         staging copy and the replay) and "device_wait" (the
         synchronisation and the copy out)."""
+        return self._score(params, frames, backend, device, parent_span, eager=True)
+
+    def replay(self, params: Any, frames, *,
+               backend: str | B.Backend = "fixed_cuda",
+               device: torch.device | str | None = None,
+               parent_span: T.Span | None = None) -> np.ndarray | None:
+        """`score` where the call replays a cached frame graph: the same
+        scores, "score" span (tagged `graph="replay"`, children "trunk" and
+        "device_wait") and `fcn_sweep_graph` event.  None, having run
+        nothing, counted nothing and opened no span, where the call is not
+        eligible or its geometry and params have no graph yet; `score` then
+        runs it.  A replay holds its caller for the copy in, the card's
+        ~20 us of work and the copy out, so `StreamingPipeline` calls it on
+        its event loop's thread."""
+        return self._score(params, frames, backend, device, parent_span, eager=False)
+
+    def _score(self, params: Any, frames, backend, device, parent_span,
+               eager: bool) -> np.ndarray | None:
+        """`score`, and with `eager` False, `replay`: one key computation
+        decides between the cached graph and the eager sweep (None)."""
         tr = T.get()
-        ph = None
-        if tr is not None:
-            n0 = sum(launches().values())
-            sp = tr.start("score", parent_span.trace_id if parent_span is not None
-                          else "score", parent=parent_span)
-            ph = T.Phases(tr, sp, "trunk", sp.t_start)
+        t0 = time.perf_counter() if tr is not None else None
         be = B.get_backend(backend)
         _check_saturation(be)
         dev = _sweep_device(frames, device)
@@ -597,6 +615,15 @@ class FcnSweep(Tiler):
             key = _graph_key(be, params, shape[1:3], self.patch,
                              tuple(self.positions(shape[1:3])), self.megakernel, dev)
         graph = _cached_graph(key) if key is not None else None
+        if graph is None and not eager:
+            return None
+        ph = None
+        if tr is not None:
+            n0 = sum(launches().values())
+            sp = tr.start("score", parent_span.trace_id if parent_span is not None
+                          else "score", parent=parent_span)
+            sp.t_start = t0
+            ph = T.Phases(tr, sp, "trunk", t0)
         if graph is not None:
             event, out = "replay", graph.replay(frames, ph)
         else:

@@ -21,7 +21,18 @@ fabric, so a slow stage means dropped frames, not unbounded queues:
              backend, on the engine's device (one `frame_trunk` launch and
              one head launch on `fixed_cuda`); an engine with a callable
              `score_frame` (`serving/disagg.DisaggServer`) scores the frame
-             itself, through its trunk and head pools.
+             itself, through its trunk and head pools.  One call runs on
+             the event loop's thread instead: a sweep whose frame graph is
+             already captured (`FcnSweep.replay` returns its scores, None
+             where there is no graph), a replay that holds the loop ~0.15
+             ms.  Sending it to a worker cost more than the replay: the
+             hop, and the interpreter lock passed back and forth with the
+             loop's stages at each of the replay's releases.  The capture,
+             an eager sweep, the engine's waves and `score_frame`, which
+             can take milliseconds, stay on the workers.  The registry
+             counter `stream_infer_thread` (label `thread`: "loop" or
+             "worker"), the infer span's `thread` tag and `stats()`'s
+             `infer_thread` count where each wave ran.
   aggregate  confidence thresholding + dedup -> `FrameResult` (identical
              code path for both tilers: scores in, Detections out).
 
@@ -127,6 +138,9 @@ class StreamingPipeline:
         # monolithic sweep; they also warm both halves at construction, so
         # the pipeline-side warmup is theirs to skip
         self._disagg = self.sweep and callable(getattr(engine, "score_frame", None))
+        # a sweep replays a captured frame graph on the loop's thread; the
+        # tiler answers whether the frame has one
+        self._inline = self.sweep and not self._disagg
         if self.sweep and not self._disagg and hasattr(source, "frame_shape"):
             # run the whole-frame sweep once BEFORE the clip starts (the
             # VisionEngine warmup idiom): the first call builds the kernels,
@@ -160,6 +174,9 @@ class StreamingPipeline:
         self._lat_hist = reg.histogram("stream_frame_latency_seconds",
                                        pipe=self._id)
         self._m_fps = reg.gauge("stream_achieved_fps", pipe=self._id)
+        self._m_thread = {t: reg.counter("stream_infer_thread", pipe=self._id,
+                                         thread=t)
+                          for t in ("loop", "worker")}
         self._queue_gauges: dict[str, M.Gauge] = {}
         self._t_first: float | None = None
         self._t_last: float | None = None
@@ -272,6 +289,16 @@ class StreamingPipeline:
         return self.tiler.score(eng.params, frames, backend=eng.backend,
                                 device=getattr(eng, "device", None))
 
+    def _replay_wave(self, item: _Item) -> "np.ndarray | None":
+        """The frame's sweep as a replay of its captured frame graph, on the
+        calling thread (the event loop's); None where it has none."""
+        if not self._inline:
+            return None
+        eng = self.engine
+        return self.tiler.replay(eng.params, item.tiles, backend=eng.backend,
+                                 device=getattr(eng, "device", None),
+                                 parent_span=item.span)
+
     def _serve_wave(self, item: _Item) -> "np.ndarray | None":
         """One batched wave through the engine (worker thread); in sweep
         mode, one full-frame sweep instead.  The engine's intake stays open
@@ -320,11 +347,14 @@ class StreamingPipeline:
                                      else "sweep" if self.sweep
                                      else "engine"))
                      if tr is not None and item.span is not None else None)
-            item.scores = await loop.run_in_executor(
-                None, self._serve_wave, item)
+            item.scores, thread = self._replay_wave(item), "loop"
+            if item.scores is None:
+                item.scores, thread = await loop.run_in_executor(
+                    None, self._serve_wave, item), "worker"
+            self._m_thread[thread].inc()
             if child is not None:
-                tr.end(child,
-                       "ok" if item.scores is not None else "shed")
+                tr.end(child, "ok" if item.scores is not None else "shed",
+                       thread=thread)
             item.stage_s["infer"] = time.perf_counter() - t0
             self._stage_hist["infer"].observe(item.stage_s["infer"])
             if item.scores is None:
@@ -406,6 +436,7 @@ class StreamingPipeline:
             "accounted": accounted,
             "sustained_fps": fps,
             "detections_total": sum(len(r.detections) for r in self.results),
+            "infer_thread": {t: c.value for t, c in self._m_thread.items()},
             "queue_hwm": {k: int(g.hwm)
                           for k, g in self._queue_gauges.items()},
             "stage": {k: h.summary_ms()

@@ -6,10 +6,14 @@ port's `StreamingPipeline`, in tiler mode (waves through `VisionEngine`)
 and in sweep mode (one `FcnSweep` per frame), serves exactly its offline
 detections, which equal the reference's offline detections on the same
 clip and params.  The ledger `frames_in == served + dropped` holds under
-deadline misses and both drop policies.  Everything runs on the CPU
+deadline misses and both drop policies.  A sweep whose frame graph is
+captured is replayed on the event loop's thread; the capture, an eager
+sweep, the engine's waves and `score_frame` run on workers, and the
+detections are the all-worker run's.  Everything runs on the CPU
 (`VisionEngine(device="cpu")`, plain versions of the kernels).
 """
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -22,9 +26,12 @@ from repro.streaming import sources as jsrc  # noqa: E402
 from repro.streaming import tiler as jtiler  # noqa: E402
 from repro_torch.core.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
+from repro_torch.obs import metrics as M  # noqa: E402
+from repro_torch.obs import trace as T  # noqa: E402
 from repro_torch.serving.vision_engine import VisionEngine  # noqa: E402
-from repro_torch.streaming import (FcnSweep, PacedPlayer, StreamConfig,  # noqa: E402
-                                   StreamingPipeline, SyntheticVideoSource, Tiler)
+from repro_torch.streaming import (FcnSweep, PacedPlayer, RepeatedClipSource,  # noqa: E402
+                                   StreamConfig, StreamingPipeline, SyntheticVideoSource,
+                                   Tiler)
 from repro_torch.streaming.tiler import tile_positions  # noqa: E402
 
 
@@ -221,3 +228,199 @@ def test_drop_policy_oldest_keeps_the_freshest_frames():
     assert res and res[-1].index == 19
     with pytest.raises(ValueError, match="drop_policy"):
         StreamConfig(drop_policy="random")
+
+
+# ---------------------------------------------------------------------------
+# where the infer stage runs a wave: the loop's thread or a worker
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _GraphStub(FcnSweep):
+    """`FcnSweep` whose "graph cache" is the set of frames it has scored:
+    `score` (the eager call, which captures where `capture`) adds the
+    frame after `delay_s`; `replay` serves a frame of the set and returns
+    None for the others.  Each call records (thread, start, end)."""
+    capture: bool = True
+    delay_s: float = 0.0
+    captured: set = dataclasses.field(default_factory=set, compare=False)
+    scores: list = dataclasses.field(default_factory=list, compare=False)
+    replays: list = dataclasses.field(default_factory=list, compare=False)
+
+    def score(self, params, frames, **kw):
+        t0 = time.perf_counter()
+        time.sleep(self.delay_s)
+        out = super().score(params, frames, **kw)
+        if self.capture:
+            self.captured.add(np.asarray(frames).tobytes())
+        self.scores.append((threading.get_ident(), t0, time.perf_counter()))
+        return out
+
+    def replay(self, params, frames, **kw):
+        if np.asarray(frames).tobytes() not in self.captured:
+            return None
+        t0 = time.perf_counter()
+        out = super().score(params, frames, **kw)
+        self.replays.append((threading.get_ident(), t0, time.perf_counter()))
+        return out
+
+
+def _thread_counts(pipe) -> dict[str, int]:
+    return {t: M.REGISTRY.counter("stream_infer_thread", pipe=pipe._id, thread=t).value
+            for t in ("loop", "worker")}
+
+
+def _infer_run(source, engine, tiler, **kw):
+    """Run the clip on this thread (the event loop's); -> (results, stats,
+    the infer spans by frame, the pipeline)."""
+    pipe = StreamingPipeline(source, engine, tiler, **kw)
+    tr = T.enable(capacity=4096)
+    try:
+        res = pipe.run()
+        spans = tr.recorder.spans()
+    finally:
+        T.disable()
+    infer = {int(s.trace_id.split("-")[1]): s for s in spans if s.name == "infer"}
+    return res, pipe.stats(), infer, pipe
+
+
+@pytest.mark.parametrize("distinct,repeats", [(3, 3), (2, 4)])
+def test_captured_frames_replay_on_the_loop_thread_and_the_rest_on_workers(
+        params, threshold, distinct, repeats):
+    """Each frame of a clip shown `repeats` times: its first showing
+    captures on a worker, the repeats replay on the loop's thread.  The
+    registry counter (each pipeline under its own label), the stats and the
+    infer spans' `thread` tag count both; detections, frame order and the
+    ledger are those of the same clip run all on workers (the real
+    `FcnSweep` on CPU tensors, which has no graph to replay)."""
+    tp = params_from_jax(params, "cpu")
+    clip = RepeatedClipSource(SyntheticVideoSource(n_frames=distinct, seed=3), repeats=repeats)
+    n = distinct * repeats
+    eng = VisionEngine(tp, backend="fixed_cuda", batch_size=64, device="cpu")
+    stub = _GraphStub(stride=8, threshold=threshold)
+    loop_thread = threading.get_ident()
+    res, s, infer, pipe = _infer_run(clip, eng, stub)
+    warm, *run = stub.scores                           # the constructor's warm-up first
+    assert warm[0] == loop_thread
+    assert [t for t, _, _ in stub.replays] == [loop_thread] * (n - distinct)
+    assert len(run) == distinct and all(t != loop_thread for t, _, _ in run)
+    want = (["worker"] + ["loop"] * (repeats - 1)) * distinct
+    assert [infer[i].tags["thread"] for i in range(n)] == want
+    assert all(infer[i].tags["route"] == "sweep" and infer[i].status == "ok" for i in range(n))
+    threads = {"loop": n - distinct, "worker": distinct}
+    assert s["infer_thread"] == _thread_counts(pipe) == threads
+    base_res, base, _, base_pipe = _infer_run(clip, eng, FcnSweep(stride=8, threshold=threshold))
+    assert base["infer_thread"] == _thread_counts(base_pipe) == {"loop": 0, "worker": n}
+    assert _thread_counts(pipe) == threads
+    assert s["accounted"] and base["accounted"]
+    assert s["frames_served"] == base["frames_served"] == n and s["frames_dropped"] == 0
+    assert [r.index for r in res] == [r.index for r in base_res] == list(range(n))
+    assert [r.detections for r in res] == [r.detections for r in base_res]
+    assert s["detections_total"] == base["detections_total"] > 0
+
+
+class _ListSource:
+    """A frozen clip whose Frame objects the caller keeps (PacedPlayer
+    stamps each one's `t_source` as it emits it)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+        self.frame_shape = frames[0].pixels.shape[:2]
+
+    def __iter__(self):
+        return iter(self.frames)
+
+    def __len__(self):
+        return len(self.frames)
+
+
+def test_realtime_slow_eager_sweep_scores_off_the_loop_thread(params, threshold):
+    """An eager sweep (no graph: `replay` returns None) that takes 20 ms a
+    frame under a 200 fps camera runs on workers, and the loop keeps
+    ingesting while it does: frames are stamped inside the sweeps' calls,
+    and the full queue's drops are counted, not lost."""
+    tp = params_from_jax(params, "cpu")
+    frames = SyntheticVideoSource(n_frames=12, seed=1).frames()
+    eng = VisionEngine(tp, backend="fixed_cuda", batch_size=64, device="cpu")
+    stub = _GraphStub(stride=8, threshold=threshold, capture=False, delay_s=0.02)
+    res, s, infer, _ = _infer_run(PacedPlayer(_ListSource(frames), fps=200), eng, stub,
+                                  config=StreamConfig(queue_size=1))
+    loop_thread = threading.get_ident()
+    run = stub.scores[1:]                              # after the constructor's warm-up
+    assert stub.replays == [] and run and all(t != loop_thread for t, _, _ in run)
+    assert s["mode"] == "realtime" and s["accounted"] and s["frames_in"] == 12
+    assert s["drops_by_reason"].get("queue_full", 0) > 0
+    assert s["infer_thread"] == {"loop": 0, "worker": len(run)}
+    assert {sp.tags["thread"] for sp in infer.values()} == {"worker"}
+    assert any(a < f.t_source < b for f in frames for _, a, b in run)
+    assert len(res) == s["frames_served"] > 0
+
+
+class _ThreadEngine:
+    """Stub engine: constant scores, the thread of each wave recorded."""
+
+    def __init__(self):
+        self.threads = []
+
+    def serve(self, tiles):
+        self.threads.append(threading.get_ident())
+        return [_FakeResult(scores=np.zeros(10, np.float32)) for _ in tiles]
+
+
+class _ThreadServer:
+    """Stub disaggregated server: a model (`params`, `backend`) and a
+    `score_frame` that sweeps eagerly, the thread of each call recorded."""
+
+    def __init__(self, params):
+        self.params, self.backend, self.threads = params, "fixed_cuda", []
+
+    def score_frame(self, frames, parent_span=None):
+        self.threads.append(threading.get_ident())
+        return FcnSweep(stride=8).score(self.params, frames, backend=self.backend,
+                                        device="cpu")
+
+
+@pytest.mark.parametrize("route", ["engine", "disagg"])
+def test_engine_and_score_frame_routes_never_take_the_loop_thread(params, threshold, route):
+    """The engine's waves (`Tiler` + `serve`) and a disaggregated server's
+    `score_frame` run on workers, even with a sweep whose every frame has a
+    graph: the pipeline asks no tiler to replay on those routes."""
+    tp = params_from_jax(params, "cpu")
+    clip = SyntheticVideoSource(n_frames=4, seed=2)
+    if route == "engine":
+        eng = _ThreadEngine()
+        tiler = Tiler(stride=8, threshold=threshold)
+    else:
+        eng = _ThreadServer(tp)
+        tiler = _GraphStub(stride=8, threshold=threshold)
+        tiler.captured.update(tiler.extract(f)[0].tobytes() for f in clip.frames())
+    res, s, infer, _ = _infer_run(clip, eng, tiler)
+    loop_thread = threading.get_ident()
+    assert len(eng.threads) == 4 and loop_thread not in eng.threads
+    assert s["infer_thread"] == {"loop": 0, "worker": 4}
+    assert [infer[i].tags["thread"] for i in range(4)] == ["worker"] * 4
+    assert [infer[i].tags["route"] for i in range(4)] == [route] * 4
+    assert s["accounted"] and [r.index for r in res] == list(range(4))
+    if route == "disagg":
+        assert tiler.replays == [] and tiler.scores == []
+
+
+def test_replay_runs_nothing_without_a_captured_graph(params):
+    """On CPU tensors a sweep has no frame graph: `replay` returns None and
+    counts no `fcn_sweep_graph` event and opens no span; `score` still
+    sweeps (eagerly)."""
+    tp = params_from_jax(params, "cpu")
+    sw = FcnSweep(stride=8)
+    fb, _ = sw.extract(SyntheticVideoSource(n_frames=1, seed=4).frames()[0])
+    events = {e: M.REGISTRY.counter("fcn_sweep_graph", event=e) for e in
+              ("capture", "replay", "eager")}
+    before = {e: c.value for e, c in events.items()}
+    tr = T.enable(capacity=64)
+    try:
+        got = sw.replay(tp, fb, backend="fixed_cuda", device="cpu")
+        n_spans = len(tr.recorder)
+    finally:
+        T.disable()
+    assert got is None and n_spans == 0
+    assert {e: c.value for e, c in events.items()} == before
+    assert sw.score(tp, fb, backend="fixed_cuda", device="cpu").shape == (144, 10)
+    assert events["eager"].value == before["eager"] + 1

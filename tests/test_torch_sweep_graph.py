@@ -7,9 +7,15 @@ and skip without one.  They import no JAX:
 within 1e-6 (it sums a score in k order, cuBLAS in its own); the graph
 route of `FcnSweep.score` to the eager sweep bit for bit, on `cuda_plan`,
 `cuda` and `fixed_cuda` with native params, at 28x28, 112x112 and
-720x1280.  The CPU side of the head and of the eligibility rule is in
-`tests/test_torch_fcn_sweep.py` and `tests/test_torch_float_backends.py`.
+720x1280.  Through `StreamingPipeline`, the captured frame graph replays
+on the event loop's thread with the detections of the composed route.
+The CPU side of the head and of the eligibility rule is in
+`tests/test_torch_fcn_sweep.py` and `tests/test_torch_float_backends.py`,
+that of the pipeline's threads in `tests/test_torch_streaming.py`.
 """
+import dataclasses
+import threading
+
 import numpy as np
 import pytest
 
@@ -19,7 +25,8 @@ from repro_torch.core import backends as TB  # noqa: E402
 from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.conv2d import float_window_head, float_window_head_plain  # noqa: E402
 from repro_torch.obs import metrics as M  # noqa: E402
-from repro_torch.streaming import FcnSweep, SyntheticVideoSource  # noqa: E402
+from repro_torch.serving.vision_engine import VisionEngine  # noqa: E402
+from repro_torch.streaming import FcnSweep, StreamingPipeline, SyntheticVideoSource  # noqa: E402
 from repro_torch.streaming import fcn_sweep as fs  # noqa: E402
 
 SHAPES = [(28, 28), (112, 112), (720, 1280)]
@@ -273,3 +280,92 @@ def test_concurrent_replays_keep_each_frame_on_card(cuda):
         sys.setswitchinterval(old)
     assert not any(th.is_alive() for th in threads) and errors == []
     assert _delta(before) == {"capture": 0, "replay": n_threads * n_calls, "eager": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Recorded(FcnSweep):
+    """FcnSweep that records the scores its aggregate receives (frame order)
+    and the thread of each replay."""
+    got: list = dataclasses.field(default_factory=list, compare=False)
+    replay_threads: list = dataclasses.field(default_factory=list, compare=False)
+
+    def replay(self, *args, **kwargs):
+        out = super().replay(*args, **kwargs)
+        if out is not None:
+            self.replay_threads.append(threading.get_ident())
+        return out
+
+    def aggregate(self, scores, positions, tiles=None):
+        self.got.append(scores)
+        return super().aggregate(scores, positions, tiles)
+
+
+def _ambiguous(sweep, scores, positions, tol) -> bool:
+    """Whether detections from scores within `tol` of these may differ: a
+    window's top confidence within `tol` of the threshold, a candidate's two
+    top classes within `tol`, or two candidates within the dedup distance
+    whose confidences lie within `tol`."""
+    conf = sweep._confidences(scores)
+    best, top2 = conf.max(-1), np.sort(conf, axis=-1)[:, -2:]
+    cand = np.flatnonzero(best >= sweep.threshold - tol)
+    pos = np.asarray(positions)
+    near_order = any(((np.abs(best[cand[i + 1:]] - best[c]) <= tol)
+                      & (np.abs(pos[cand[i + 1:]] - pos[c]).max(-1) <= sweep.min_dist)).any()
+                     for i, c in enumerate(cand))
+    return bool((np.abs(best - sweep.threshold) <= tol).any()
+                or ((top2[cand, 1] - top2[cand, 0]) <= tol).any() or near_order)
+
+
+def _same_detections(got, want, tol) -> bool:
+    """Equal label, place and size, and a score within `tol`."""
+    return len(got) == len(want) and all(
+        (g.label, g.y, g.x, g.size) == (w.label, w.y, w.x, w.size)
+        and abs(g.score - w.score) <= tol for g, w in zip(got, want))
+
+
+def test_pipeline_replays_each_frame_on_the_loop_thread_on_card(cuda):
+    """100 112x112 frames on `cuda_plan` through `StreamingPipeline`: the
+    constructor captures once, and every frame replays on the event loop's
+    thread.  Detections equal the offline `detect` (the same graph) and the
+    same clip's run on the composed route (`megakernel=False`, eager, on a
+    worker): label and place, and the score within the head's 1e-6, where
+    that run's scores leave no tie within 1e-6."""
+    p = _params(7, cuda)
+    frames = SyntheticVideoSource(n_frames=100, seed=3).frames()
+    composed = FcnSweep(stride=8, megakernel=False)
+    fb, pos = composed.extract(frames[0])
+    conf = composed._confidences(composed.score(p, fb, backend="cuda_plan", device=cuda))
+    threshold = float(np.quantile(conf.max(-1), 0.8))
+    runs = {}
+    for mk in (None, False):
+        sweep = _Recorded(stride=8, threshold=threshold, megakernel=mk)
+        eng = VisionEngine(p, backend="cuda_plan", device=cuda, warmup=False)
+        before = _graph_events()
+        pipe = StreamingPipeline(SyntheticVideoSource(n_frames=100, seed=3), eng, sweep)
+        warm = _delta(before)
+        before = _graph_events()
+        res = pipe.run()
+        runs[mk] = (sweep, res, pipe.stats(), warm, _delta(before), eng.params)
+    sweep, res, st, warm, run, native = runs[None]
+    assert warm == {"capture": 1, "replay": 0, "eager": 0}
+    assert run == {"capture": 0, "replay": 100, "eager": 0}
+    assert st["infer_thread"] == {"loop": 100, "worker": 0}
+    assert sweep.replay_threads == [threading.get_ident()] * 100
+    assert st["accounted"] and st["frames_served"] == 100 and st["frames_dropped"] == 0
+    assert [r.index for r in res] == list(range(100))
+    offline = FcnSweep(stride=8, threshold=threshold)
+    assert [r.detections for r in res] == [
+        offline.detect(native, f, backend="cuda_plan", device=cuda) for f in frames]
+    c_sweep, c_res, c_st, c_warm, c_run, _ = runs[False]
+    assert c_warm == {"capture": 0, "replay": 0, "eager": 1}
+    assert c_run == {"capture": 0, "replay": 0, "eager": 100}
+    assert c_st["infer_thread"] == {"loop": 0, "worker": 100} and c_sweep.replay_threads == []
+    assert [r.index for r in c_res] == list(range(100))
+    ties = []
+    for i, (a, b) in enumerate(zip(res, c_res)):
+        np.testing.assert_allclose(sweep.got[i], c_sweep.got[i], rtol=0, atol=HEAD_ATOL)
+        if not _same_detections(a.detections, b.detections, HEAD_ATOL):
+            ties.append(i)
+            assert _ambiguous(c_sweep, c_sweep.got[i], pos, HEAD_ATOL), i
+    assert len(ties) <= 10, ties
+    assert sum(len(r.detections) for r in res) > 0
