@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA
                                    # card, torch built for CUDA, and nvcc
+    python3 chip_smoke.py kda      # device, build and the kda phase alone,
+                                   # then the kernels line of its two rows
 
 Phases, each printing one JSON line (`{"phase": ...}`):
 
@@ -13,7 +15,8 @@ Phases, each printing one JSON line (`{"phase": ...}`):
   build     compile the kernels of src/repro_torch/csrc with nvcc (sm_90a),
             timed, with ptxas' register counts
   ptxas     for the redesigned sources (quant_matmul.cu, frame_trunk.cu,
-            fixed_dense.cu, fixed_net.cu, float_kernels.cu, float_net.cu):
+            fixed_dense.cu, fixed_net.cu, float_kernels.cu, float_net.cu,
+            float_sweep.cu, kda.cu):
             each kernel's registers, spills and static shared memory from
             `-Xptxas -v`, and its SASS instruction counts (cuobjdump); in
             float_kernels.cu conv2d_direct_kernel is the one-thread-per-
@@ -77,6 +80,16 @@ Phases, each printing one JSON line (`{"phase": ...}`):
             CPU) and of the composed head at 28x28, 112x112 and 720x1280
             with both activations, timed with PLAN at 112x112 and 720x1280
             beside its bound, the plain version and the composed head
+  kda       Kimi Linear's two KDA kernels (`phase_kda`) at the served
+            path's shapes (32 heads, K = V = 128): kda_chunk_prefill
+            (csrc/kda.cu) at B=1, T=1024 and 8192 and at B=2, T=200,
+            kda_decode_step (Triton) at 64 slots, each against its plain
+            version on the card within KDA_TOL; their times (CUDA events)
+            beside their bounds and the plain versions'; then the served
+            path: a model of the published layer pattern and KDA widths
+            (27 layers, 20 KDA; the rest narrow) through Engine.submit/step
+            on the card, launches counted from zero over that run alone:
+            20 kda_chunk_prefill a prompt and 20 kda_decode_step a step
   serve     VisionEngine(backend="fixed_cuda", batch_size=64, device="cuda"),
             threaded, over 1024 synth_mnist images in Q16.16 and in Q8.8:
             every score word equals the plain `fixed` backend's on the CPU,
@@ -340,6 +353,13 @@ LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_LR = 256, 8, 3e-3
 LM_TRAIN_TIMED = 4
 LM_CUT_LAYERS, LM_CUT_BATCH, LM_CUT_SEQ, LM_CUT_LR = 2, 1, 16, 1e-4
 LM_CUT_TOL, LM_CUT_PARAM_TOL = 1e-4, 1e-6
+# the kda phase: the served path's heads and head width; the prompts timed;
+# the decode step's slots; the largest gap to the plain version, float32
+# outputs of magnitude ~0.1 and states of ~1 (decays down to e^-20 a step)
+KDA_HEADS, KDA_WIDTH = 32, 128
+KDA_PROMPTS = (1024, 8192)
+KDA_SLOTS = 64
+KDA_TOL = 2e-4
 CUBLAS_DETERMINISTIC = ":4096:8"
 # the distributed phase: its child process' argument and time limit; the
 # full-width compression's timed calls; the launcher's smoke steps
@@ -386,6 +406,10 @@ KERNELS = {
     "float_window_head": ("src/repro_torch/csrc/float_sweep.cu",
                           "src/repro/streaming/fcn_sweep.py _head_scores (XLA's matmul, "
                           "then sigmoid_pla_pallas)"),
+    # Kimi Linear's KDA layer: the JAX package has no such layer
+    "kda_chunk_prefill": ("src/repro_torch/csrc/kda.cu", "none: no KDA layer in src/repro"),
+    "kda_decode_step": ("src/repro_torch/kernels/kda/ops.py (Triton)",
+                        "none: no KDA layer in src/repro"),
 }
 
 
@@ -1409,6 +1433,157 @@ def phase_float_window_head_kernel(card: str) -> dict:
          card=card, sweep_frame=table, shapes=shapes,
          library="none: no single PyTorch call computes the windowed head")
     return table
+
+
+def kda_inputs(B, T, H, K, seed):
+    """q, k (L2-normed, q scaled), v, the log decays g (down to -20 a
+    step in half the heads and tokens, 0 in the others) and beta, float32
+    on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.rand(*shape, device="cuda", generator=gen)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    q = torch.nn.functional.normalize(randn(B, T, H, K), dim=-1) * K ** -0.5
+    k = torch.nn.functional.normalize(randn(B, T, H, K), dim=-1)
+    v = randn(B, T, H, K)
+    g = -rand(B, T, H, K) * 20 * (rand(B, T, H, 1) < 0.5)
+    return q, k, v, g, rand(B, T, H)
+
+
+def kda_prefill_work(T, H, K):
+    """(bytes, FLOPs) of a kda_chunk_prefill call, V = K: q, k, v, the
+    cumulative decay and beta read, o and the final state written, float32;
+    a chunk of c tokens and a head computes A and P (c^2 K products), the
+    solve and P U (c^2 V) and the state's three products (3 c K V), two
+    FLOPs a product."""
+    flops = sum(2.0 * H * (2 * c * c * K + 3 * c * K * K)
+                for c in (min(64, T - a) for a in range(0, T, 64)))
+    return 4.0 * (T * H * (5 * K + 1) + H * K * K), flops
+
+
+def kda_decode_work(B, H, K):
+    """(bytes, FLOPs) of a kda_decode_step call over B slots, V = K: each
+    state read and written, q, k, g, v, beta read and o written; the
+    decay, S^T k, the update and S^T q."""
+    return 4.0 * B * H * (2 * K * K + 5 * K + 1), 2.0 * B * H * 4 * K * K
+
+
+def kda_served_path(card: str) -> dict[str, int]:
+    """A model of Kimi Linear's layer pattern and KDA widths (27 layers, 20
+    KDA of 32 heads of 128; MLA, experts, d_model and the vocabulary
+    narrow) served through Engine.submit/step on the card: 3 prompts of
+    1024, 333 and 65 tokens, 6 new tokens each, over 2 slots.  The launch
+    counts are zeroed right before the run and read right after it:
+    20 kda_chunk_prefill a prompt, 20 kda_decode_step a decode step, and
+    the engine's own `kda_launches` the same.  Returns the counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import transformer as TR
+    from repro_torch.serving.engine import Engine, Request
+
+    full = get_config("kimi-linear-48b-a3b")
+    cfg = dataclasses.replace(full, d_model=256, n_heads=4, d_ff=512, vocab=1024,
+                              n_experts=16, top_k=2, experts_held=0, kv_lora_rank=64,
+                              qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+                              moe_d_ff=64)
+    expect((cfg.n_layers, len(cfg.kda_layers), cfg.kda_heads, cfg.kda_head_dim) ==
+           (27, 20, KDA_HEADS, KDA_WIDTH), f"kda: the served pattern is {cfg}")
+    params, _ = TR.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                               device="cuda")
+    eng = Engine(cfg, params, batch_size=2, max_len=1100, device="cuda")
+    rng = np.random.default_rng(6)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, size=n).astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate((1024, 333, 65))]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    while eng.pending:
+        eng.step()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = launches()
+    st = eng.stats()
+    steps = len(eng.work["steps"])
+    want = {"kda_chunk_prefill": 20 * st["prefills"], "kda_decode_step": 20 * steps}
+    expect(st["accounted"] and st["finished"] == len(reqs) and all(r.done for r in reqs),
+           f"kda: the served path left requests: {st}")
+    expect({k: got.get(k, 0) for k in want} == want and
+           st["kda_launches"] == sum(want.values()),
+           f"kda: served path launches {got}, engine {st['kda_launches']}, want {want}")
+    emit("kda", part="served path", prefills=st["prefills"], decode_steps=steps,
+         state_resets=st["state_resets"], launches=got, wall_s=wall_s, card=card)
+    return got
+
+
+def phase_kda(card: str) -> tuple[dict, list[dict]]:
+    """kda_chunk_prefill (csrc/kda.cu) and kda_decode_step (Triton) at the
+    served path's shapes against their plain versions on the card, within
+    KDA_TOL, each call one launch; their times beside their bounds and the
+    plain versions'; then `kda_served_path`.  Returns the two rows of the
+    kernels line and the served path's launch counts."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.kernels.kda import (kda_chunk_prefill, kda_chunk_prefill_plain,
+                                         kda_decode_step, kda_decode_step_plain)
+
+    H, K = KDA_HEADS, KDA_WIDTH
+    rows, shapes = {}, []
+    prefill_err = 0.0
+    for B, T in ((2, 200), *((1, T) for T in KDA_PROMPTS)):
+        args = kda_inputs(B, T, H, K, seed=T)
+        reset_launches()
+        o, state = kda_chunk_prefill(*args)
+        torch.cuda.synchronize()
+        expect(launches() == {"kda_chunk_prefill": 1},
+               f"kda_chunk_prefill B={B} T={T}: launches {launches()}")
+        want_o, want_s = kda_chunk_prefill_plain(*args)
+        errs = {"o": float((o - want_o).abs().max()), "state": float((state - want_s).abs().max())}
+        expect(max(errs.values()) <= KDA_TOL, f"kda_chunk_prefill B={B} T={T}: gaps {errs}")
+        prefill_err = max(prefill_err, *errs.values())
+        if B != 1:
+            continue
+        nbytes, flops = kda_prefill_work(T, H, K)
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+        shapes.append({"case": f"prompt of {T}", "ms": device_ms(
+            lambda: kda_chunk_prefill(*args), 5), "plain_ms": device_ms(
+            lambda: kda_chunk_prefill_plain(*args), 2), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bytes": nbytes, "ops": flops, "gaps": errs})
+    rows["kda_chunk_prefill"] = {
+        "name": "kda_chunk_prefill", "route": "cuda", "source": KERNELS["kda_chunk_prefill"][0],
+        "replaces": KERNELS["kda_chunk_prefill"][1], "launches": 0, "max_abs_err": prefill_err,
+        **{k: shapes[-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("kernel", name="kda_chunk_prefill", max_abs_err=prefill_err, card=card, shapes=shapes,
+         library="none: no PyTorch call computes the delta rule")
+
+    q, k, v, g, beta = (t[:, 0].contiguous() for t in kda_inputs(KDA_SLOTS, 1, H, K, seed=7))
+    s0 = torch.randn(KDA_SLOTS, H, K, K, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    s1, s2 = s0.clone(), s0.clone()
+    reset_launches()
+    o = kda_decode_step(q, k, v, g, beta, s1)
+    torch.cuda.synchronize()
+    expect(launches() == {"kda_decode_step": 1}, f"kda_decode_step: launches {launches()}")
+    want = kda_decode_step_plain(q, k, v, g, beta, s2)
+    errs = {"o": float((o - want).abs().max()), "state": float((s1 - s2).abs().max())}
+    expect(max(errs.values()) <= KDA_TOL, f"kda_decode_step: gaps {errs}")
+    nbytes, flops = kda_decode_work(KDA_SLOTS, H, K)
+    b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    step = {"case": f"{KDA_SLOTS} slots", "ms": device_ms(
+        lambda: kda_decode_step(q, k, v, g, beta, s1), 20), "plain_ms": device_ms(
+        lambda: kda_decode_step_plain(q, k, v, g, beta, s2), 5), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "bytes": nbytes, "ops": flops, "gaps": errs}
+    rows["kda_decode_step"] = {
+        "name": "kda_decode_step", "route": "triton", "source": KERNELS["kda_decode_step"][0],
+        "replaces": KERNELS["kda_decode_step"][1], "launches": 0,
+        "max_abs_err": max(errs.values()),
+        **{k: step[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    emit("kernel", name="kda_decode_step", max_abs_err=max(errs.values()), card=card,
+         shapes=[step], library="none: no PyTorch call computes the delta rule")
+    return rows, [kda_served_path(card)]
 
 
 def conv_float_work(B, H, W, cin, kh, kw, cout, Ho, Wo, act):
@@ -4116,15 +4291,17 @@ def main() -> int:
         distributed_child(sys.argv[2])
         return 0
     kind = torch.cuda.get_device_name(0)
-    run(nvidia_smi_line(), kind, torch.cuda.device_count())
+    only = sys.argv[1] if sys.argv[1:2] == ["kda"] else None
+    run(nvidia_smi_line(), kind, torch.cuda.device_count(), only)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
 
 
-def run(card: str, kind: str, count: int) -> None:
-    """Every phase; raises on the first failure."""
+def run(card: str, kind: str, count: int, only: str | None = None) -> None:
+    """Every phase, or with `only` "kda" the device, build and kda phases;
+    raises on the first failure."""
     import torch
     from repro_torch.analysis import mfu
     print(card, flush=True)
@@ -4143,9 +4320,13 @@ def run(card: str, kind: str, count: int) -> None:
     emit("build", seconds=_build.build_seconds, sources=list(_build.SOURCES),
          ptxas=regs)
     for name in ("quant_matmul", "frame_trunk", "fixed_dense", "fixed_net", "float_kernels",
-                 "float_net", "float_sweep"):                                   # redesigned
+                 "float_net", "float_sweep", "kda"):                            # redesigned
         emit("ptxas", source=f"csrc/{name}.cu", kernels=ptxas_kernels(report[name]),
              sass=sass_counts(_build.library_path(name)))
+    kda_rows, kda_runs = phase_kda(card)
+    if only == "kda":
+        finish_kernels(card, kda_rows, kda_runs)
+        return
 
     phase_golden()
     phase_sweep_golden()
@@ -4226,6 +4407,11 @@ def run(card: str, kind: str, count: int) -> None:
     runs += phase_distributed(card)
     phase_profile(params, images, card)
     phase_sweep_profile(card)
+    finish_kernels(card, {**table, **kda_rows}, runs + kda_runs)
+
+
+def finish_kernels(card: str, table: dict, runs: list[dict]) -> None:
+    """Each kernel's launches over the runs, then the kernels line."""
     for name, row in table.items():
         row["launches"] = sum(c.get(name, 0) for c in runs)
         expect(row["launches"] > 0, f"{name}: no launch on the served and swept paths")

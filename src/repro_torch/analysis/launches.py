@@ -4,7 +4,8 @@ Port of `repro.analysis.launches`, which counts `pallas_call` equations in
 a traced program.  The port has no traced program: a call launches its
 kernels as it runs.  So `count_launches` runs the call once under
 `torch.profiler` (CUDA activity only), counts the device kernels whose
-names are kernels of `src/repro_torch/csrc/`, and holds that count against
+names are kernels of `src/repro_torch/csrc/` or Triton kernels of
+`kernels/` (`kernels/kda`'s decode step), and holds that count against
 the wrappers' own counts (`kernels/_launch.LAUNCHES`) over the same call.
 Two independent counts of one run must agree: the profiler's sees what the
 card ran, the wrappers' what the Python path asked for.
@@ -19,8 +20,9 @@ import re
 import time
 from typing import Any, Callable, Iterable
 
-# `__global__` function in csrc/*.cu -> the wrapper's launch-count name
-# (`count_launch(name)`); one wrapper may take one of several kernels
+# `__global__` function in csrc/*.cu, or `triton.jit` function in
+# kernels/*/ops.py -> the wrapper's launch-count name (`count_launch(name)`);
+# one wrapper may take one of several kernels
 KERNEL_LAUNCHES: dict[str, str] = {
     "fixed_conv2d_kernel": "fixed_conv2d",
     "fixed_maxpool2x2_kernel": "fixed_maxpool2x2",
@@ -39,6 +41,8 @@ KERNEL_LAUNCHES: dict[str, str] = {
     "sigmoid_pla_kernel": "sigmoid_pla",
     "qmm_dp4a_kernel": "quant_matmul",
     "qmm_wgmma_kernel": "quant_matmul",
+    "kda_chunk_prefill_kernel": "kda_chunk_prefill",
+    "kda_decode_step_kernel": "kda_decode_step",
 }
 # host idle at each end of `count_launches`' profiled window: on the H100
 # the profiler lost all the device activity of 21 in 3,092 windows of three

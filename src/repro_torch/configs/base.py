@@ -118,6 +118,31 @@ class LatentMoEConfig(ArchConfig):
     router_dtype: Any = torch.float32
     norm_eps: float = 1e-6
     context_length: int = 0
+    # `mla_rope` False: q_pe and k_pe left unrotated (NoPE), the score and
+    # the cache as with RoPE
+    mla_rope: bool = True
+    # expert parallelism: this device holds routed experts
+    # [expert_offset, expert_offset + experts_held) of the router's
+    # `n_experts` (0: all of them) and computes only their pairs
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    @property
+    def n_held(self) -> int:
+        return self.experts_held or self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridLatentMoEConfig(LatentMoEConfig):
+    """Kimi Linear's block (family "kda_mla_moe"): the layers of
+    `kda_layers` (0-based) are Kimi Delta Attention, a channel-wise gated
+    delta rule of `kda_heads` heads of `kda_head_dim` behind causal
+    depthwise convolutions of `short_conv_kernel_size`; the others MLA.
+    The MLPs are as `LatentMoEConfig`'s."""
+    kda_layers: tuple = ()
+    kda_heads: int = 0
+    kda_head_dim: int = 0
+    short_conv_kernel_size: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,7 +35,7 @@ from repro_torch.core import fixed_point as fxp
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fixed_conv", "fixed_dense", "fixed_net", "frame_trunk", "float_kernels",
-           "float_net", "float_sweep", "quant_matmul")     # csrc/<name>.cu
+           "float_net", "float_sweep", "kda", "quant_matmul")     # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +94,9 @@ SIGNATURES = {
     "float_sweep": {
         "float_sweep_stage_launch": [_I] + [_P] * 7 + [_I] * 4 + [_P],
         "float_window_head_launch": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    },
+    "kda": {
+        "kda_chunk_prefill_launch": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     },
     "quant_matmul": {
         "quant_matmul_dp4a_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],

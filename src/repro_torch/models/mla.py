@@ -20,6 +20,10 @@ Two forms of the same attention:
   cache's products run in the compute dtype (float32 accumulation); the
   softmax in float32.
 
+With `mla_rope` False (Kimi Linear's `mla_use_nope`) q_pe and k_pe are
+left unrotated: the same columns, the same score scale and the same
+cache, without positions.
+
 The cache of one layer is `ckv` (B, T, kv_lora_rank), the normed latent,
 and `kpe` (B, T, qk_rope_head_dim), the roped key, in the compute dtype:
 576 values a token a layer where full K/V of 16 heads would hold 5,120.
@@ -50,7 +54,8 @@ def init_mla(draw: layers.Draw, cfg, lead: tuple = ()) -> tuple[dict, dict]:
 
 def project(x, p, cfg, positions):
     """x (B, S, d); positions (S,) or (B, S) -> q_nope (B,S,H,nope),
-    q_pe (B,S,H,rope) roped, ckv (B,S,r) normed, k_pe (B,S,rope) roped."""
+    q_pe (B,S,H,rope) roped, ckv (B,S,r) normed, k_pe (B,S,rope) roped
+    (both left unrotated where `cfg.mla_rope` is False)."""
     B, S, _ = x.shape
     H, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -58,8 +63,9 @@ def project(x, p, cfg, positions):
     q_nope, q_pe = q.split([nope, rope], dim=-1)
     ckv, k_pe = layers.linear(x, p["wkv_a"], cfg.dtype).split([r, rope], dim=-1)
     ckv = layers.rmsnorm(ckv, p["kv_norm"]["w"], cfg.norm_eps)
-    q_pe = layers.apply_rope(q_pe, positions, cfg.rope_theta)
-    k_pe = layers.apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    if cfg.mla_rope:
+        q_pe = layers.apply_rope(q_pe, positions, cfg.rope_theta)
+        k_pe = layers.apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_pe, ckv, k_pe
 
 

@@ -115,21 +115,22 @@ EXPERT_SPREAD = 0.1
 
 
 def init_routed_moe(draw: layers.Draw, cfg, lead: tuple = ()) -> tuple[dict, dict]:
-    """Router (float32 `router_dtype`, with its correction bias), `n_experts`
-    gated experts of width `moe_d_ff` and one gated MLP of width
-    `n_shared_experts * moe_d_ff` for the shared experts.  The experts'
+    """Router (float32 `router_dtype`, with its correction bias) over
+    `n_experts`, the `n_held` gated experts held here of width `moe_d_ff`
+    and one gated MLP of width `n_shared_experts * moe_d_ff` for the
+    shared experts.  The experts'
     stacks are drawn a layer at a time around a shared draw
     (`Draw.normal_around`, `EXPERT_SPREAD`)."""
     if cfg.router_scoring != "sigmoid":
         raise ValueError(f"routed_moe routes by sigmoid scores, not {cfg.router_scoring!r}")
-    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    d, f, E, Eh = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.n_held
     dt, rt = cfg.param_dtype, cfg.router_dtype
     p = {
         "router": {"w": draw.normal(lead + (d, E), 1.0 / math.sqrt(d), rt),
                    "bias": draw.normal(lead + (E,), ROUTER_BIAS_STD, rt)},
-        "wi": draw.normal_around(lead + (E, d, f), 1.0 / math.sqrt(d), EXPERT_SPREAD, dt),
-        "wg": draw.normal_around(lead + (E, d, f), 1.0 / math.sqrt(d), EXPERT_SPREAD, dt),
-        "wo": draw.normal_around(lead + (E, f, d), 1.0 / math.sqrt(f), EXPERT_SPREAD, dt),
+        "wi": draw.normal_around(lead + (Eh, d, f), 1.0 / math.sqrt(d), EXPERT_SPREAD, dt),
+        "wg": draw.normal_around(lead + (Eh, d, f), 1.0 / math.sqrt(d), EXPERT_SPREAD, dt),
+        "wo": draw.normal_around(lead + (Eh, f, d), 1.0 / math.sqrt(f), EXPERT_SPREAD, dt),
     }
     ps, as_ = layers.init_mlp(draw, d, cfg.n_shared_experts * f, "gated", dt, lead)
     p["shared"] = ps
@@ -169,28 +170,50 @@ def routed_moe(x, p, cfg, *, capacity: int | None = None, load: list | None = No
     instead (>= that most; a token picks an expert at most once, so C = T
     always holds): with it nothing is read back to the host, which a decode
     step uses.  With `load` a list, the experts' pair counts (E,) are
-    appended to it, on the device."""
+    appended to it, on the device.
+
+    Where this device holds a share of the experts (`cfg.n_held` of
+    `n_experts`, from `expert_offset`), the router still picks over all of
+    them, and only the pairs routed to the held experts are computed: the
+    others are sorted last, behind a bin of their own, and written to a
+    row of the batch that no matmul reads, with weight 0.  The result is
+    this device's part of the layer, the shared experts included."""
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    E, k = cfg.n_held, cfg.top_k
     T = B * S
     x2 = x.reshape(T, d)
     weights, idx = route_sigmoid(x2, p, cfg)
     e = idx.reshape(-1)                                           # (T*k,)
+    w = weights.reshape(-1)
+    share = E != cfg.n_experts
+    if share:
+        e = e - cfg.expert_offset
+        mine = (e >= 0) & (e < E)
+        e = torch.where(mine, e, E)                              # E: not held here
     order = torch.argsort(e, stable=True)
     e_s = e[order]
     tok = order // k
-    counts = torch.bincount(e, minlength=E)
+    counts = torch.bincount(e, minlength=E + share)
+    if share:
+        counts = counts[:E]
     if load is not None:
         load.append(counts)
     starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(T * k, device=x.device) - starts[e_s]
+    if share:
+        e_g = e_s.clamp(max=E - 1)              # the pairs not held read 0 weight
+        rank = torch.where(e_s < E, torch.arange(T * k, device=x.device) - starts[e_g], 0)
+        w = torch.where(mine, w, 0.0)
+    else:
+        e_g = e_s
+        rank = torch.arange(T * k, device=x.device) - starts[e_s]
     C = capacity if capacity is not None else int(counts.max())
-    xe = torch.zeros((E, C, d), dtype=cfg.dtype, device=x.device)
+    xe = torch.zeros((E + share, C, d), dtype=cfg.dtype, device=x.device)
     xe[e_s, rank] = x2[tok].to(cfg.dtype)
+    xe = xe[:E]
     wi, wg, wo = (layers._materialize(p[n], cfg.dtype) for n in ("wi", "wg", "wo"))
     h = layers.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
     ye = torch.bmm(h, wo)                                          # (E, C, d)
     y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, tok, ye[e_s, rank].float() * weights.reshape(-1)[order, None])
+    y.index_add_(0, tok, ye[e_g, rank].float() * w[order, None])
     shared = layers.mlp(x, p["shared"], "gated", cfg.dtype)
     return y.to(cfg.dtype).reshape(B, S, d) + shared

@@ -23,6 +23,17 @@ of `models/mla.py`, "ckv" and "kpe" with a leading layer axis.  Its
 `span` (the port's tracer on), both record a child span a layer ("mla",
 then "dense_mlp" or "moe") and "lm_head"; a "moe" span's expert load is
 tagged after the step's last device read (`tag_expert_load`).
+
+The "kda_mla_moe" family (Kimi Linear's block, `configs.base.
+HybridLatentMoEConfig`) has the same MLPs ("dense_blocks", "blocks", norms
+with them) and two stacks of attention: "kda_blocks" (`models/kda.py`) for
+the layers of `cfg.kda_layers` and "mla_blocks" for the others, in layer
+order.  Its cache holds both kinds of state side by side, layer first:
+the MLA layers' latent rows ("ckv", "kpe") and the KDA layers' float32
+state ("kda_state", (L_kda, B, H, K, V)) and convolution tail
+("kda_conv").  A prefill writes its slots' state and tail from zero; a
+decode step updates them in place.  Its spans name each layer's attention
+"kda" or "mla".
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.device import resolve_device
 from repro_torch.core.ptq import QuantTensor
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, mamba, mla, moe, rwkv6
+from repro_torch.models import kda, layers, mamba, mla, moe, rwkv6
 from repro_torch.obs import trace
 
 # ---------------------------------------------------------------------------
@@ -89,16 +100,22 @@ def _init_whisper_dec_block(draw, cfg, lead):
              "norm1": norms[0][1], "norm2": norms[1][1], "norm3": norms[2][1]})
 
 
-def _init_mla_block(draw, cfg, lead, dense: bool):
-    pa, aa = mla.init_mla(draw, cfg, lead)
+def _init_ffn_block(draw, cfg, lead, dense: bool):
+    """A latent-attention model's layer less its attention: the two norms
+    and the MLP (gated on a dense layer, routed experts on the others)."""
     n1, an1 = layers.init_norm(draw, cfg.d_model, "rmsnorm", cfg.param_dtype, lead)
     n2, an2 = layers.init_norm(draw, cfg.d_model, "rmsnorm", cfg.param_dtype, lead)
     if dense:
         pm, am = layers.init_mlp(draw, cfg.d_model, cfg.d_ff, "gated", cfg.param_dtype, lead)
     else:
         pm, am = moe.init_routed_moe(draw, cfg, lead)
-    return ({"attn": pa, "mlp": pm, "norm1": n1, "norm2": n2},
-            {"attn": aa, "mlp": am, "norm1": an1, "norm2": an2})
+    return ({"mlp": pm, "norm1": n1, "norm2": n2}, {"mlp": am, "norm1": an1, "norm2": an2})
+
+
+def _init_mla_block(draw, cfg, lead, dense: bool):
+    pa, aa = mla.init_mla(draw, cfg, lead)
+    p, a = _init_ffn_block(draw, cfg, lead, dense)
+    return {"attn": pa, **p}, {"attn": aa, **a}
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
@@ -132,6 +149,12 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
         params["dense_blocks"], axes["dense_blocks"] = _init_mla_block(draw, cfg, (nd,), True)
         params["blocks"], axes["blocks"] = _init_mla_block(
             draw, cfg, (cfg.n_layers - nd,), False)
+    elif fam == "kda_mla_moe":
+        nd, nk = cfg.first_dense_layers, len(cfg.kda_layers)
+        params["dense_blocks"], axes["dense_blocks"] = _init_ffn_block(draw, cfg, (nd,), True)
+        params["blocks"], axes["blocks"] = _init_ffn_block(draw, cfg, (cfg.n_layers - nd,), False)
+        params["kda_blocks"], axes["kda_blocks"] = kda.init_kda(draw, cfg, (nk,))
+        params["mla_blocks"], axes["mla_blocks"] = mla.init_mla(draw, cfg, (cfg.n_layers - nk,))
     elif fam == "audio":
         params["enc_blocks"], axes["enc_blocks"] = _init_dense_block(
             draw, cfg, (cfg.encoder_layers,))
@@ -282,6 +305,22 @@ def _mla_stacks(params):
             yield blk, dense
 
 
+def _latent_layers(cfg, params):
+    """(attention kind "mla" or "kda", its params, its index in the cache's
+    stack of that kind, the layer's params with its norms and MLP, dense?)
+    of every layer of an mla_moe or kda_mla_moe model, in order."""
+    if cfg.family == "mla_moe":
+        for li, (blk, dense) in enumerate(_mla_stacks(params)):
+            yield "mla", blk["attn"], li, blk, dense
+        return
+    attn = {"kda": unstack(params["kda_blocks"]), "mla": unstack(params["mla_blocks"])}
+    seen = {"kda": 0, "mla": 0}
+    for li, (blk, dense) in enumerate(_mla_stacks(params)):
+        kind = "kda" if li in cfg.kda_layers else "mla"
+        yield kind, attn[kind][seen[kind]], seen[kind], blk, dense
+        seen[kind] += 1
+
+
 class _LayerSpans:
     """Consecutive child spans of `parent`, each from the previous mark to
     this one; the "moe" spans' expert loads kept on the device until
@@ -390,6 +429,14 @@ def forward(cfg, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
             x, aux = _scan_blocks(cfg, x, params[name],
                                   lambda x, blk, d=dense: _mla_body(cfg, x, blk, positions, d))
         return _logits(cfg, params, _rms(cfg, x, params["final_norm"])), aux
+    elif fam == "kda_mla_moe":
+        for kind, pa, _, blk, dense in _latent_layers(cfg, params):
+            xn = _rms(cfg, x, blk["norm1"])
+            y = mla.mla_block(xn, pa, cfg, positions) if kind == "mla" else \
+                kda.kda_prefill(xn, pa, cfg)[0]
+            x = _mla_ffn(cfg, x + y, blk, dense)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _logits(cfg, params, _rms(cfg, x, params["final_norm"])), aux
     else:
         raise ValueError(fam)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
@@ -418,10 +465,17 @@ def init_cache_shape(cfg, batch: int, max_len: int) -> dict:
                     "v": meta((L, batch, max_len, K, hd), cfg.dtype)}
     if fam in ("dense", "moe", "vlm"):
         return kv(cfg.n_layers)
-    if fam == "mla_moe":
-        L = cfg.n_layers
-        return {"ckv": meta((L, batch, max_len, cfg.kv_lora_rank), cfg.dtype),
-                "kpe": meta((L, batch, max_len, cfg.qk_rope_head_dim), cfg.dtype)}
+    if fam in ("mla_moe", "kda_mla_moe"):
+        nk = len(cfg.kda_layers) if fam == "kda_mla_moe" else 0
+        L = cfg.n_layers - nk
+        out = {"ckv": meta((L, batch, max_len, cfg.kv_lora_rank), cfg.dtype),
+               "kpe": meta((L, batch, max_len, cfg.qk_rope_head_dim), cfg.dtype)}
+        if nk:
+            H, K = cfg.kda_heads, cfg.kda_head_dim
+            out["kda_state"] = meta((nk, batch, H, K, K), torch.float32)
+            out["kda_conv"] = meta((nk, batch, cfg.short_conv_kernel_size - 1, 3 * H * K),
+                                   cfg.dtype)
+        return out
     if fam == "ssm":
         return {k: meta((cfg.n_layers,) + v.shape, v.dtype)
                 for k, v in rwkv6.rwkv_state_shape(batch, cfg).items()}
@@ -445,7 +499,8 @@ def zeros_cache(cfg, batch: int, max_len: int, *, device=None) -> dict:
             for k, v in init_cache_shape(cfg, batch, max_len).items()}
 
 
-PER_SLOT_POSITIONS = ("mla_moe",)     # families whose decode_step takes pos (B,)
+# families whose decode_step takes pos (B,)
+PER_SLOT_POSITIONS = ("mla_moe", "kda_mla_moe")
 
 
 def _mla_decode(cfg, params, cache, token, pos, span=None):
@@ -455,11 +510,15 @@ def _mla_decode(cfg, params, cache, token, pos, span=None):
     x = layers.embed(token, params["embed"], cfg.dtype)   # (B,1,d)
     pos_t = torch.as_tensor(np.array(pos_h), device=x.device)
     sp = _LayerSpans(span) if span is not None else None
-    for li, (blk, dense) in enumerate(_mla_stacks(params)):
-        y = mla.absorbed_decode(_rms(cfg, x, blk["norm1"]), blk["attn"], cfg,
-                                cache["ckv"][li], cache["kpe"][li], pos_t, t_used)
+    for kind, pa, ci, blk, dense in _latent_layers(cfg, params):
+        xn = _rms(cfg, x, blk["norm1"])
+        if kind == "mla":
+            y = mla.absorbed_decode(xn, pa, cfg, cache["ckv"][ci], cache["kpe"][ci], pos_t,
+                                    t_used)
+        else:
+            y = kda.kda_decode(xn, pa, cfg, cache["kda_state"][ci], cache["kda_conv"][ci])
         if sp is not None:
-            sp.mark("mla")
+            sp.mark(kind)
         x = _mla_ffn(cfg, x + y, blk, dense, sp, capacity=B)
     logits = _logits(cfg, params, _rms(cfg, x, params["final_norm"]))[:, 0]
     if sp is not None:
@@ -473,8 +532,8 @@ def decode_step(cfg, params, cache: dict, token: torch.Tensor, pos, *, span=None
     for the families of `PER_SLOT_POSITIONS` also one a slot, (B,)).
     Returns (logits (B, vocab_padded) f32, cache): the cache's tensors are
     updated in place (the reference donates its cache to the step).
-    `span`: the parent of the layers' spans (mla_moe only)."""
-    if cfg.family == "mla_moe":
+    `span`: the parent of the layers' spans (those families only)."""
+    if cfg.family in PER_SLOT_POSITIONS:
         return _mla_decode(cfg, params, cache, token, pos, span)
     B = token.shape[0]
     pos = int(pos)
@@ -551,12 +610,18 @@ def _mla_prefill(cfg, params, tokens, cache, slots, span):
                  for k, v in init_cache_shape(cfg, B, S).items()}
         slots = range(B)
     slots = torch.as_tensor(list(slots), device=x.device)
-    for li, (blk, dense) in enumerate(_mla_stacks(params)):
-        o, ckv, kpe = mla.prefill_block(_rms(cfg, x, blk["norm1"]), blk["attn"], cfg, positions)
-        cache["ckv"][li, slots, :S] = ckv.to(cache["ckv"].dtype)
-        cache["kpe"][li, slots, :S] = kpe.to(cache["kpe"].dtype)
+    for kind, pa, ci, blk, dense in _latent_layers(cfg, params):
+        xn = _rms(cfg, x, blk["norm1"])
+        if kind == "mla":
+            o, ckv, kpe = mla.prefill_block(xn, pa, cfg, positions)
+            cache["ckv"][ci, slots, :S] = ckv.to(cache["ckv"].dtype)
+            cache["kpe"][ci, slots, :S] = kpe.to(cache["kpe"].dtype)
+        else:
+            o, state, tail = kda.kda_prefill(xn, pa, cfg)
+            cache["kda_state"][ci, slots] = state
+            cache["kda_conv"][ci, slots] = tail.to(cache["kda_conv"].dtype)
         if sp is not None:
-            sp.mark("mla")
+            sp.mark(kind)
         x = _mla_ffn(cfg, x + o, blk, dense, sp)
     logits = _logits(cfg, params, _rms(cfg, x[:, -1:], params["final_norm"]))[:, -1]
     if sp is not None:
@@ -570,9 +635,10 @@ def prefill(cfg, params, batch: dict, *, cache: dict | None = None, slots=None, 
     materialization in the same layer loop.  Returns
     (last-position logits (B, vocab_padded), cache).  For mla_moe, with
     `cache` and `slots` (B slot indices) the prompts' rows are written
-    into those slots of `cache`, in place, and `cache` is returned;
+    into those slots of `cache`, in place, and `cache` is returned (for
+    kda_mla_moe also their state and convolution tail, from zero);
     `span` as in `decode_step`."""
-    if cfg.family == "mla_moe":
+    if cfg.family in PER_SLOT_POSITIONS:
         return _mla_prefill(cfg, params, batch["tokens"], cache, slots, span)
     tokens = batch["tokens"]
     B, S = tokens.shape

@@ -21,7 +21,10 @@ position 0, which nothing reads); finished slots are freed and refilled
 at the next step.  With the port's tracer on, each prefill is an
 `lm_prefill` span and each decode step an `lm_decode` span, whose
 children are the model's layer spans, then `sample` (argmax and copy
-back).  `stats()` holds the path's counters.
+back).  `stats()` holds the path's counters; for a model with recurrent
+state (kda_mla_moe) also `state_resets`, the slots whose state a prefill
+wrote from zero, and `kda_launches`, the KDA kernels launched by this
+engine's calls (0 on the CPU, where their plain versions run).
 
 The cache is updated in place (the reference donates it to the step).
 Float weights that every use casts to `cfg.dtype` (linear and embedding
@@ -42,6 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.ptq import QuantTensor
+from repro_torch.kernels import launches
 from repro_torch.models import model as M
 from repro_torch.models import transformer
 from repro_torch.obs import trace
@@ -94,6 +98,9 @@ class Engine:
         self.queue: collections.deque[Request] = collections.deque()
         self.counters = dict(submitted=0, finished=0, steps=0, prefills=0,
                              prefill_tokens=0, decode_tokens=0, busy_s=0.0)
+        self.recurrent = "kda_state" in self.cache
+        if self.recurrent:
+            self.counters.update(state_resets=0, kda_launches=0)
         # each prefill's prompt length and each decode step's (active
         # slots, their summed context): the work a step did, for its bound
         self.work: dict[str, list] = {"prompts": [], "steps": []}
@@ -178,6 +185,12 @@ class Engine:
         c["accounted"] = c["submitted"] == c["finished"] + c["pending"]
         return c
 
+    def _kda_launched(self) -> int:
+        if not self.recurrent:
+            return 0
+        n = launches()
+        return n.get("kda_chunk_prefill", 0) + n.get("kda_decode_step", 0)
+
     def _finish(self, slot: int, done: list) -> None:
         req = self.slot_req[slot]
         req.done = True
@@ -189,8 +202,12 @@ class Engine:
         S = len(req.prompt)
         span = tr.start("lm_prefill", str(req.uid), uid=req.uid, tokens=S) if tr else None
         tokens = torch.from_numpy(np.asarray(req.prompt, np.int64)[None]).to(self.device)
+        n0 = self._kda_launched()
         logits, _ = self.model.prefill(self.params, {"tokens": tokens}, cache=self.cache,
                                        slots=[slot], span=span)
+        if self.recurrent:
+            self.counters["state_resets"] += 1
+            self.counters["kda_launches"] += self._kda_launched() - n0
         nxt = int(torch.argmax(logits[0, :self.cfg.vocab]))
         t = time.perf_counter()
         if span is not None:
@@ -218,9 +235,12 @@ class Engine:
         span = tr.start("lm_decode", "engine", active=len(active),
                         max_pos=int(pos.max())) if tr else None
         cache = {k: v[:, :n] for k, v in self.cache.items()}
+        n0 = self._kda_launched()
         logits, _ = self.model.decode_step(self.params, cache,
                                            torch.from_numpy(tokens).to(self.device), pos,
                                            span=span)
+        if self.recurrent:
+            self.counters["kda_launches"] += self._kda_launched() - n0
         t_sample = time.perf_counter()
         nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).cpu().numpy()
         t = time.perf_counter()

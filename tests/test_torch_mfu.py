@@ -349,9 +349,11 @@ def test_the_table_covers_every_kernel_and_wrapper():
     sources = "".join(p.read_text() for p in CSRC.glob("*.cu"))
     kernels = set(re.findall(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s+)?"
                              r"(?:void\s+)?(\w+_kernel)\s*\(", sources))
-    assert kernels and kernels == set(L.KERNEL_LAUNCHES) | set(L.HELPER_KERNELS)
-    wrappers = set(re.findall(r'count_launch\("(\w+)"\)', "".join(
-        p.read_text() for p in (CSRC.parent / "kernels").rglob("ops.py"))))
+    ops = "".join(p.read_text() for p in (CSRC.parent / "kernels").rglob("ops.py"))
+    triton = set(re.findall(r"@triton\.jit(?:\([^)]*\))?\s+def\s+(\w+_kernel)\s*\(", ops))
+    assert kernels and triton
+    assert kernels | triton == set(L.KERNEL_LAUNCHES) | set(L.HELPER_KERNELS)
+    wrappers = set(re.findall(r'count_launch\("(\w+)"\)', ops))
     assert wrappers == set(L.KERNEL_LAUNCHES.values())
 
 
